@@ -1,0 +1,114 @@
+"""Serving entry point of the PyTorch port: the isolated greedy oracle and the
+paged engine's command line.  The counterpart of ``repro/launch/serve.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+        --engine paged --batch 4 --prompt-len 32 --gen 32
+
+runs on the GPU (``--device cpu --reduced`` runs the plain PyTorch path on
+the CPU) and prints the JAX CLI's JSON report: the paged engine's
+``metrics()`` fields plus wall time and tokens/s.  Weights are random,
+from the port's seeded ``init_params``; prompts come from ``--seed``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config import get_config, reduced
+from repro_torch.models import model as M
+from repro_torch.models.layers import logits_from_hidden
+
+
+@torch.no_grad()
+def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
+             return_top2: bool = False
+             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Isolated greedy decoding through a dense cache: prompts (B, S0) ->
+    (B, S0 + gen) tokens on the prompts' device.  The oracle every engine
+    test holds the paged engine to.
+
+    With ``return_top2`` also returns the (B, gen, 2) fp32 values of the
+    two largest logits at each step: how close each greedy choice was.
+    """
+    B, S0 = prompts.shape
+    cache = M.init_cache(cfg, B, S0 + gen, device=prompts.device)
+    hidden, cache = M.prefill_cached(cfg, params, {"tokens": prompts}, cache)
+    logits = logits_from_hidden(params, hidden[:, -1:], cfg)
+    toks = prompts
+    top2: List[torch.Tensor] = []
+    for i in range(gen):
+        last = logits[:, -1].float()
+        if return_top2:
+            top2.append(torch.topk(last, 2, dim=-1).values)
+        nxt = torch.argmax(last, dim=-1)[:, None].to(prompts.dtype)
+        toks = torch.cat([toks, nxt], dim=1)
+        if i + 1 < gen:
+            logits, cache = M.decode_step(cfg, params, cache, nxt,
+                                          toks.shape[1] - 1)
+    if return_top2:
+        return toks, torch.stack(top2, dim=1)
+    return toks
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--engine", choices=("paged",), default="paged",
+                    help="serving path (the port has the paged engine)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV page size")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="per-tick token cap (0 = unbounded packing)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    args = ap.parse_args(argv)
+
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    params = M.init_params(cfg, seed=args.seed, device=args.device)
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    max_seq = args.prompt_len + args.gen + 1
+    eng = PagedServingEngine(
+        cfg, params, max_slots=args.batch, block_size=args.block_size,
+        max_blocks_per_seq=-(-max_seq // args.block_size),
+        token_budget=args.token_budget or None, device=args.device)
+    t0 = time.time()
+    for row in prompts:
+        eng.submit(row, args.gen)
+    results = eng.run_to_completion()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_tokens = sum(len(v) for v in results.values())
+    report = {
+        "arch": cfg.name, "engine": args.engine, "batch": args.batch,
+        "prompt_len": args.prompt_len, "generated": args.gen,
+        "device": (torch.cuda.get_device_name(eng.device)
+                   if eng.device.type == "cuda" else "cpu"),
+        "wall_s": round(wall, 3),
+        "tokens_per_s": round(n_tokens / wall, 1),
+        "output_shape": [len(results)],
+        **eng.metrics(),
+    }
+    print(json.dumps(report, indent=1))
+    return report
+
+
+if __name__ == "__main__":
+    main()

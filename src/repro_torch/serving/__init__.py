@@ -1,0 +1,18 @@
+"""Paged-KV serving in PyTorch (the counterpart of ``repro.serving``).
+
+Components:
+    blocks      — pooled fixed-size KV pages, ref-counted allocator, block
+                  tables (a copy of ``repro/serving/blocks.py``)
+    paged_attn  — cache init + the per-tick unified step over the op
+                  boundary in ``repro_torch.kernels.paged_attention``
+    engine      — PagedServingEngine: unified ragged tick, token budget,
+                  FCFS admission, recompute preemption
+    scheduler   — FCFS admission, preemption policies, latency accounting
+                  (a copy of ``repro/serving/scheduler.py``)
+"""
+from repro_torch.serving.blocks import BlockAllocator, BlockTable
+from repro_torch.serving.engine import PagedServingEngine
+from repro_torch.serving.scheduler import FCFSScheduler, RequestStats
+
+__all__ = ["BlockAllocator", "BlockTable", "FCFSScheduler",
+           "PagedServingEngine", "RequestStats"]

@@ -52,3 +52,9 @@ def small_batch(cfg, B=2, S=16, key=0):
         batch["frames"] = jax.random.normal(
             ks[3], (B, cfg.encoder_seq, cfg.d_model), jnp.float32)
     return batch
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips where torch.cuda.is_available() is false")

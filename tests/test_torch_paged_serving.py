@@ -1,0 +1,345 @@
+"""The port's PagedServingEngine (``repro_torch.serving``) on the CPU,
+ported from ``tests/test_paged_serving.py``.
+
+The contract under test: every request served through the engine yields
+exactly the tokens the port's isolated greedy ``generate`` produces —
+under ragged prompts, mid-flight admission, slot reuse, token budgets,
+sliding windows and preemption-driven recomputation — and the same
+tokens the JAX engine serves on the same weights.
+
+Both output projections (``attn.wo``, ``mlp.wo``) are scaled by
+``BRANCH_GAIN``: at random init the residual stream is dominated by the
+token embedding and greedy decoding just repeats the last prompt token,
+which would pass with attention broken.  With the gain, streams vary.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_config as jax_get_config
+from repro.config import reduced as jax_reduced
+from repro.models import model as JM
+from repro.serving import PagedServingEngine as JaxPagedServingEngine
+from repro_torch.config import get_config, reduced
+from repro_torch.launch.serve import generate
+from repro_torch.models import model as M
+from repro_torch.serving import PagedServingEngine
+from repro_torch.weights import params_from_numpy
+
+BRANCH_GAIN = 8.0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _amplify(params):
+    params["layers"]["attn"]["wo"] = params["layers"]["attn"]["wo"] \
+        * BRANCH_GAIN
+    params["layers"]["mlp"]["wo"] = params["layers"]["mlp"]["wo"] \
+        * BRANCH_GAIN
+    return params
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = reduced(get_config("granite-3-2b"))
+    return cfg, _amplify(M.init_params(cfg, seed=0, device="cpu"))
+
+
+def _engine(cfg, params, **kw):
+    return PagedServingEngine(cfg, params, device="cpu", **kw)
+
+
+def _ref(cfg, params, prompt, gen):
+    out = generate(cfg, params, torch.from_numpy(prompt)[None], gen)
+    return out[0, len(prompt):].tolist()
+
+
+def _prompts(seed, cfg, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+            for n in lens]
+
+
+def test_streams_are_not_trivial(setup):
+    """Guard for the other tests: the fixture's greedy streams do not just
+    repeat the last prompt token."""
+    cfg, params = setup
+    seen = set()
+    for prompt in _prompts(0, cfg, (6, 9, 4)):
+        toks = _ref(cfg, params, prompt, 12)
+        assert set(toks) != {int(prompt[-1])}
+        seen |= set(toks)
+    assert len(seen) > 4
+
+
+def test_matches_isolated_generation_ragged(setup):
+    """Ragged prompts through 2 slots, chunked prefill crossing page
+    boundaries, tokens identical to isolated greedy decoding."""
+    cfg, params = setup
+    eng = _engine(cfg, params, max_slots=2, block_size=4,
+                  max_blocks_per_seq=12, prefill_chunk=3)
+    prompts = _prompts(0, cfg, (5, 8, 6, 1))
+    gens = [5, 3, 6, 4]
+    ids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    results = eng.run_to_completion()
+    for rid, p, g in zip(ids, prompts, gens):
+        assert results[rid] == _ref(cfg, params, p, g)
+
+
+def test_mid_flight_admission(setup):
+    cfg, params = setup
+    eng = _engine(cfg, params, max_slots=2, block_size=4,
+                  max_blocks_per_seq=10, prefill_chunk=4)
+    first = _prompts(1, cfg, (6, 9))
+    ids = [eng.submit(p, 8) for p in first]
+    for _ in range(4):                      # get the first wave in flight
+        eng.step()
+    late = _prompts(2, cfg, (7, 5))
+    ids += [eng.submit(p, 6) for p in late]
+    results = eng.run_to_completion()
+    assert set(results) == set(ids)
+    for rid, p, g in zip(ids, first + late, [8, 8, 6, 6]):
+        assert results[rid] == _ref(cfg, params, p, g)
+
+
+def test_slot_and_block_reuse(setup):
+    """More requests than slots: every page returns to the free list and
+    recycled pages leak no stale K/V into later requests."""
+    cfg, params = setup
+    eng = _engine(cfg, params, max_slots=1, block_size=4,
+                  max_blocks_per_seq=6, num_blocks=7, prefill_chunk=4)
+    prompts = _prompts(3, cfg, (4, 5, 6))
+    ids = [eng.submit(p, 4) for p in prompts]
+    results = eng.run_to_completion()
+    for rid, p in zip(ids, prompts):
+        assert results[rid] == _ref(cfg, params, p, 4)
+    util = eng.alloc.utilization()
+    assert util["in_use"] == 0 and util["free"] == eng.num_blocks - 1
+    assert util["total_freed"] == util["total_allocated"] > 0
+    assert set(eng.clear_finished()) == set(ids)
+    assert eng.run_to_completion() == {}
+
+
+def test_token_budget_exact_and_throttles(setup):
+    """Streams stay exact at any budget; small budgets take more ticks and
+    never pack more than the budget (decodes always fit)."""
+    cfg, params = setup
+    prompts = _prompts(9, cfg, (10, 7))
+    gens = [4, 6]
+    refs = [_ref(cfg, params, p, g) for p, g in zip(prompts, gens)]
+    ticks = {}
+    for budget in (None, 6, 1):
+        eng = _engine(cfg, params, max_slots=2, block_size=4,
+                      max_blocks_per_seq=8, prefill_chunk=4,
+                      token_budget=budget)
+        ids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+        n = 0
+        while eng.scheduler.has_waiting or eng.active:
+            eng.step()
+            n += 1
+            if budget is not None:
+                assert eng._tick_pack[0] <= max(budget, eng.active)
+        results = eng.run_to_completion()
+        for rid, ref in zip(ids, refs):
+            assert results[rid] == ref, budget
+        ticks[budget] = n
+        assert eng.metrics()["token_budget"] == budget
+        assert eng.metrics()["dispatches"] == n
+    assert ticks[1] > ticks[6] >= ticks[None]
+    with pytest.raises(ValueError):
+        _engine(cfg, params, token_budget=0)
+
+
+@pytest.mark.parametrize("policy", ["longest", "newest"])
+def test_preemption_recompute_exact(setup, policy):
+    """A pool too small for both requests forces preemption; recomputing
+    under greedy decoding reproduces the exact streams."""
+    cfg, params = setup
+    prompts = _prompts(3, cfg, (6, 7))
+    gens = [9, 8]
+    eng = _engine(cfg, params, max_slots=2, block_size=4,
+                  max_blocks_per_seq=6, num_blocks=8, prefill_chunk=4,
+                  preemption_policy=policy)
+    ids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    results = eng.run_to_completion()
+    m = eng.metrics()["scheduler"]
+    assert m["preemptions"] >= 1
+    assert m["generated_tokens"] == sum(len(v) for v in results.values())
+    for rid, p, g in zip(ids, prompts, gens):
+        assert results[rid] == _ref(cfg, params, p, g)
+
+
+def test_mutually_fitting_pair_serializes(setup):
+    """Two requests that each fit the pool alone but not together
+    serialize through admission waits instead of livelocking."""
+    cfg, params = setup
+    eng = _engine(cfg, params, max_slots=2, block_size=8,
+                  max_blocks_per_seq=1, num_blocks=2, prefill_chunk=4)
+    prompts = [np.arange(4, dtype=np.int32), np.arange(4, dtype=np.int32) + 9]
+    ids = [eng.submit(p, 3) for p in prompts]
+    results = eng.run_to_completion(max_steps=200)
+    for rid, p in zip(ids, prompts):
+        assert results[rid] == _ref(cfg, params, p, 3)
+
+
+def test_sliding_window_exact():
+    """Per-layer windows (local + global) bind through the paged path."""
+    cfg = reduced(get_config("granite-3-2b"), sliding_window=6,
+                  global_every=2)
+    params = _amplify(M.init_params(cfg, seed=1, device="cpu"))
+    eng = _engine(cfg, params, max_slots=2, block_size=4,
+                  max_blocks_per_seq=8, prefill_chunk=5)
+    prompts = _prompts(4, cfg, (9, 5))
+    ids = [eng.submit(p, 8) for p in prompts]
+    results = eng.run_to_completion()
+    for rid, p in zip(ids, prompts):
+        assert results[rid] == _ref(cfg, params, p, 8)
+
+
+def test_step_emits_every_token_once_and_cancel(setup):
+    """step() yields each token exactly once (first tokens from prefill
+    included); cancel() frees a slot-held request's pages."""
+    cfg, params = setup
+    eng = _engine(cfg, params, max_slots=2, block_size=4,
+                  max_blocks_per_seq=8, prefill_chunk=4)
+    streams: dict = {}
+    ids = [eng.submit(p, g) for p, g in
+           zip(_prompts(7, cfg, (5, 7, 3, 4)), (4, 1, 6, 9))]
+    for _ in range(3):
+        for rid, tok in eng.step().items():
+            streams.setdefault(rid, []).append(tok)
+    held = next(r.req_id for r in eng.slot_req if r is not None)
+    assert eng.cancel(held) and eng.finished[held].cancelled
+    assert not eng.cancel(held)
+    for _ in range(200):
+        for rid, tok in eng.step().items():
+            streams.setdefault(rid, []).append(tok)
+        if not eng.scheduler.has_waiting and eng.active == 0:
+            break
+    results = eng.run_to_completion()
+    assert eng.alloc.utilization()["in_use"] == 0
+    for rid in ids:
+        assert streams.get(rid, []) == results[rid]
+
+
+def test_streams_match_jax_engine():
+    """The port's engine and the JAX engine serve the same tokens on the
+    same (bridged) weights."""
+    jcfg = jax_reduced(jax_get_config("granite-3-2b"))
+    cfg = reduced(get_config("granite-3-2b"))
+    tree = jax.tree.map(np.asarray, JM.init_params(jcfg,
+                                                   jax.random.PRNGKey(0)))
+    for k in ("attn", "mlp"):
+        tree["layers"][k]["wo"] = tree["layers"][k]["wo"] * BRANCH_GAIN
+    kw = dict(max_slots=2, block_size=4, max_blocks_per_seq=8,
+              prefill_chunk=3, token_budget=5)
+    prompts = _prompts(11, cfg, (7, 4, 9))
+    gens = [6, 8, 5]
+    jeng = JaxPagedServingEngine(jcfg, jax.tree.map(jax.numpy.asarray, tree),
+                                 **kw)
+    teng = _engine(cfg, params_from_numpy(tree, cfg, device="cpu"), **kw)
+    outs = []
+    for eng in (jeng, teng):
+        ids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+        res = eng.run_to_completion()
+        outs.append([res[i] for i in ids])
+    assert outs[0] == outs[1]
+    assert len({t for s in outs[1] for t in s}) > 3
+    assert set(jeng.metrics()) == set(teng.metrics())
+
+
+def test_paged_and_unified_step_logits_match_jax():
+    """The step functions themselves, on bridged weights and the same
+    paged cache: a prefill chunk with a padded tail (``paged_step``),
+    then a unified tick mixing a decode row with a prefill segment
+    (``unified_step``).  Logits within 1e-4 relative, pools equal to
+    within fp32 rounding on every page but the null page."""
+    from repro.serving import paged_attn as jax_pa
+    from repro_torch.serving import paged_attn as pa
+    jcfg = jax_reduced(jax_get_config("granite-3-2b"))
+    cfg = reduced(get_config("granite-3-2b"))
+    tree = jax.tree.map(np.asarray, JM.init_params(jcfg,
+                                                   jax.random.PRNGKey(1)))
+    jparams = jax.tree.map(jax.numpy.asarray, tree)
+    params = params_from_numpy(tree, cfg, device="cpu")
+    jcache = jax_pa.init_paged_cache(jcfg, 9, 4)
+    cache = pa.init_paged_cache(cfg, 9, 4, device="cpu")
+    rng = np.random.default_rng(12)
+    tables = np.array([[1, 2, 3, 0], [4, 5, 6, 0]], np.int32)
+    toks = rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)
+    pos = np.array([[0, 1, 2, 3, 4], [0, 1, 2, -1, -1]], np.int32)
+
+    def close(got, want, live):
+        want = np.asarray(want)[live][..., :cfg.vocab]
+        np.testing.assert_allclose(got.numpy()[live][..., :cfg.vocab], want,
+                                   rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+    jl, jcache = jax_pa.paged_step(jcfg, jparams, jcache,
+                                   jax.numpy.asarray(toks),
+                                   jax.numpy.asarray(pos),
+                                   jax.numpy.asarray(tables),
+                                   max_live_blocks=2)
+    with torch.no_grad():
+        tl, cache = pa.paged_step(cfg, params, cache, torch.from_numpy(toks),
+                                  torch.from_numpy(pos),
+                                  torch.from_numpy(tables), max_live_blocks=2)
+    close(tl, jl, pos >= 0)
+    # unified tick: request 0 decodes at 5, request 1 prefills 3..4
+    flat_tok = np.array([7, toks[1, 3], toks[1, 4], 0], np.int32)
+    flat_pos = np.array([5, 3, 4, -1], np.int32)
+    row_map = np.array([[0, 3], [1, 2]], np.int32)
+    verify = np.array([[0], [2]], np.int32)
+    args = (flat_tok, flat_pos, tables, row_map, verify)
+    jl, jcache = jax_pa.unified_step(jcfg, jparams, jcache,
+                                     *(jax.numpy.asarray(a) for a in args),
+                                     max_live_blocks=2, max_seg_len=2)
+    with torch.no_grad():
+        tl, cache = pa.unified_step(cfg, params, cache,
+                                    *(torch.from_numpy(a) for a in args),
+                                    max_live_blocks=2, max_seg_len=2)
+    close(tl, jl, np.ones((2, 1), bool))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name].numpy()[:, 1:],
+                                   np.asarray(jcache[name])[:, 1:],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("option", [
+    dict(prefix_cache=True), dict(speculate=True), dict(kv_dtype="int8"),
+    dict(preempt="swap"), dict(host_cache_pages=4), dict(mesh=object()),
+    dict(unified=False)])
+def test_later_slice_options_raise(setup, option):
+    cfg, params = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _engine(cfg, params, **option)
+
+
+def test_submit_validates_capacity(setup):
+    cfg, params = setup
+    eng = _engine(cfg, params, max_slots=1, block_size=4,
+                  max_blocks_per_seq=2)
+    with pytest.raises(ValueError):
+        eng.submit(np.arange(6, dtype=np.int32), 4)   # 9 slots > 8
+    with pytest.raises(ValueError):
+        eng.submit(np.zeros(0, np.int32), 1)
+
+
+def test_engine_defaults_to_cuda(setup):
+    """No silent CPU fallback: without a GPU the default device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    cfg, params = setup
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedServingEngine(cfg, params)
+    unsupported = dataclasses.replace(cfg, rwkv=True)
+    with pytest.raises(ValueError):
+        _engine(unsupported, params)
