@@ -11,21 +11,27 @@ Phases, each raising on failure:
   3. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes: gemma-2b decode (S=1) and a prefill chunk
      (S=16) crossing pages, granite-3-2b GQA, a window + softcap case and
-     the reduced fp32 shape.  Live-row outputs within the stated tolerance,
-     pools bit-equal after the scatter;
+     the reduced fp32 shape, and the engine's decode bucket at batch 4 (8
+     rows, 4 padded).  Live-row outputs within the stated tolerance, which
+     must lie below what two known-wrong kernels give (scatter skipped,
+     last page dropped); pools bit-equal after the scatter;
   4. reduced granite-3-2b in fp32: the paged engine's streams must equal
      the port's isolated greedy ``generate`` token for token, for ragged
      prompts with mid-flight admission;
   5. gemma-2b at full width (18 layers, d_model 2048, vocab 256000, bf16,
-     random weights from a seed) serves 4 requests (prompt 32, gen 32)
-     through the unified tick.  The kernel's launch count must equal
-     n_layers x dispatches, and the streams must match ``generate`` up to
-     a first divergence at a near-tie (top-2 logit gap under
-     ``BF16_TIE_ULPS`` bf16 ulps of the top logit);
-  6. time the kernel, its plain version and one PyTorch library call
-     (``scaled_dot_product_attention`` over pre-gathered pages, a
-     yardstick the port never calls) at the decode and prefill shapes,
-     beside the kernel's bound.
+     random weights from a seed, output projections scaled so the streams
+     vary) serves 4 requests (prompt 32, gen 32) through the unified
+     tick.  The kernel's launch count must equal n_layers x dispatches.
+     Teacher-forced on ``generate``'s tokens, the paged step's logits must
+     lie within ``TF_RATIO`` times the bf16 oracle's own distance from an
+     fp32 forward; the streams must match ``generate`` up to a first
+     divergence where the oracle's top-2 gap is under twice the two paths'
+     measured logit difference.  Then wall and device time per decode
+     tick, under ``torch.profiler``;
+  6. device time per call (``torch.profiler``) of the kernel, its plain
+     version and one PyTorch library call (``scaled_dot_product_attention``
+     over pre-gathered pages, a yardstick the port never calls) at the
+     decode and prefill shapes, beside the kernel's bound.
 
 The last two lines are the kernel report (JSON) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -42,8 +48,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 FULL = 1 << 30
-BRANCH_GAIN = 8.0        # phase 4 weights: see tests/test_torch_paged_serving
-BF16_TIE_ULPS = 4        # phase 5: a divergence needs a top-2 gap this close
+BRANCH_GAIN = 8.0        # phases 4, 5: see tests/test_torch_paged_serving
+TF_RATIO = 2.0           # phase 5: paged logits vs fp32, in units of the
+                         # bf16 oracle's own distance from fp32
+# phase 3, max |kernel - plain| on live rows.  fp32: summation order.
+# bf16: the kernel rounds the unnormalised p = exp(s - m) to bf16 and
+# divides by l at the end, the plain version rounds the normalised
+# softmax; both round the output to bf16, whose ulp is 2^-6 at |out| in
+# [2, 4).  Phase 3 prints what a known-wrong kernel gives beside it.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and op/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -125,6 +137,10 @@ def phase_kernel_vs_plain(torch, dev):
     cases = [
         ("gemma-2b decode S=1 B=4", dict(B=4, S=1, starts=[40, 47, 33, 63],
                                          ns=[1, 1, 1, 1], **gemma), {}),
+        # the engine's decode bucket at batch 4: 8 rows, 4 of them padded
+        ("gemma-2b decode S=1 B=8, 4 padded", dict(
+            B=8, S=1, starts=[40, 0, 47, 0, 33, 0, 63, 0],
+            ns=[1, 0, 1, 0, 1, 0, 1, 0], **gemma), {}),
         ("gemma-2b prefill S=16 B=4", dict(B=4, S=16, starts=[8, 20, 0, 40],
                                            ns=[16, 16, 11, 16], **gemma), {}),
         ("granite-3-2b GQA decode B=4", dict(B=4, S=1, starts=[5, 70, 31, 0],
@@ -146,14 +162,31 @@ def phase_kernel_vs_plain(torch, dev):
         got = call(kernel.paged_attention_update, c)
         torch.cuda.synchronize()
         live = c["pos"] >= 0
-        err = (got[0].float() - want[0].float())[live].abs().max().item()
+
+        def max_err(out):
+            return (out.float() - want[0].float())[live].abs().max().item()
+
+        err = max_err(got[0])
+        # what a known-wrong kernel gives: the tolerance must sit below it
+        wrong = {"scatter skipped": max_err(ref.paged_attention(
+            c["q"], c["kp"], c["vp"], c["tables"], c["pos"],
+            window=c["window"], softcap=c["softcap"],
+            max_live_blocks=c["live"]))}
+        if c["live"] > 1:
+            wrong["last page dropped"] = max_err(call(
+                ref.unified_attention_update, dict(c, live=c["live"] - 1))[0])
         tol = TOL[str(shape["dtype"]).split(".")[-1]]
         pools_equal = all(torch.equal(got[j], want[j]) for j in (1, 2))
         finite = bool(torch.isfinite(got[0].float()).all())
         log(f"[kernel] {name}: max|kernel - plain| = {err:.3e} "
-            f"(tol {tol:g}), pools bit-equal {pools_equal}, finite {finite}")
+            f"(tol {tol:g}; a wrong kernel: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in wrong.items())
+            + f"), pools bit-equal {pools_equal}, finite {finite}")
         if not (err <= tol and pools_equal and finite):
             raise AssertionError(f"kernel disagrees with plain: {name}")
+        if min(wrong.values()) <= tol:
+            raise AssertionError(f"tolerance {tol} cannot tell a wrong "
+                                 f"kernel from a right one: {name}")
         worst = max(worst, err)
     return worst
 
@@ -162,8 +195,8 @@ def phase_kernel_vs_plain(torch, dev):
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
 
-def to_device(tree, dev):
-    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
 
 
@@ -177,7 +210,7 @@ def phase_reduced_exact(torch, dev):
     params = M.init_params(cfg, seed=0, device="cpu")
     for k in ("attn", "mlp"):
         params["layers"][k]["wo"] *= BRANCH_GAIN
-    params = to_device(params, dev)
+    params = tree_map(lambda t: t.to(dev), params)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (5, 8, 6, 1, 11)]
@@ -204,9 +237,94 @@ def phase_reduced_exact(torch, dev):
         f"{min_gap:.4f})")
 
 
-def bf16_ulp(x):
-    import math
-    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+def device_kernels(torch, prof):
+    """(device us, calls, name) of every kernel and copy the profiler saw
+    on the card.  Only device events: a host op's device time would count
+    its kernels a second time."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((float(us), e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
+def profiled(torch, fn, n):
+    """Run ``fn`` ``n`` times under ``torch.profiler``; device rows."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return device_kernels(torch, prof)
+
+
+def teacher_forced(torch, dev, cfg, params, seq, P, BS):
+    """Logits of the token sequences ``seq`` (B, T) three ways: through
+    the paged step on the kernel (the prompt in chunks of BS, then one
+    token per step, as the engine feeds them), through the dense bf16
+    ``forward`` the oracle uses, and through ``forward`` in fp32.  Returns
+    max |paged - bf16|, max |paged - fp32|, max |bf16 - fp32|."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_from_hidden
+    from repro_torch.serving.paged_attn import init_paged_cache, paged_step
+    B, T = seq.shape
+    MB = -(-T // BS)
+    cache = init_paged_cache(cfg, 1 + B * MB, BS, device=dev)
+    tables = (1 + torch.arange(B * MB, dtype=torch.int32,
+                               device=dev)).reshape(B, MB)
+    chunks = [(s, min(s + BS, P)) for s in range(0, P, BS)]
+    chunks += [(t, t + 1) for t in range(P, T)]
+    paged = []
+    for a, b in chunks:
+        pos = torch.arange(a, b, dtype=torch.int32,
+                           device=dev).expand(B, -1).contiguous()
+        lg, cache = paged_step(cfg, params, cache, seq[:, a:b], pos, tables,
+                               max_live_blocks=(b - 1) // BS + 1)
+        paged.append(lg.float())
+    paged = torch.cat(paged, dim=1)[..., :cfg.vocab]
+    del cache
+
+    def dense(c, p):
+        return logits_from_hidden(p, M.forward(c, p, {"tokens": seq}),
+                                  c).float()[..., :cfg.vocab]
+
+    bf16 = dense(cfg, params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    f32 = dense(cfg32, p32)
+    del p32
+    return ((paged - bf16).abs().max().item(),
+            (paged - f32).abs().max().item(),
+            (bf16 - f32).abs().max().item())
+
+
+def tick_breakdown(torch, cfg, params, prompts, G, kw, ticks=8):
+    """Wall and device busy time per decode tick (4 requests decoding),
+    and the kernels that take the most device time."""
+    from repro_torch.serving import PagedServingEngine
+    eng = PagedServingEngine(cfg, params, **kw)
+    for row in prompts:
+        eng.submit(row, G)
+    for _ in range(4):                 # prefill and the first decode ticks
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / ticks * 1e3
+    rows = profiled(torch, eng.step, ticks)
+    busy = sum(r[0] for r in rows) / ticks / 1e3
+    log(f"[tick] gemma-2b decode B={len(prompts)}: wall {wall:.3f} ms/tick, "
+        f"device busy {busy:.3f} ms/tick, idle share {1 - busy / wall:.3f}")
+    for us, n, key in rows[:12]:
+        log(f"[tick]   {us / ticks / 1e3:.4f} ms x{n // ticks}  {key[:90]}")
 
 
 def phase_full_width(torch, dev):
@@ -219,9 +337,18 @@ def phase_full_width(torch, dev):
     cfg = get_config("gemma-2b")
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device=dev)
+    # gemma scales the embedding by sqrt(d_model), and with tied random
+    # embeddings the last token's own logit (~ d_model) beats every other
+    # (~ 5 sqrt(d_model)) unless the branches dwarf it: scale both output
+    # projections by sqrt(d_model) and by phase 4's gain, so that
+    # attention and MLP decide each greedy token
+    gain = BRANCH_GAIN * cfg.d_model ** 0.5
+    for k in ("attn", "mlp"):
+        params["layers"][k]["wo"].mul_(gain)
     torch.cuda.synchronize()
     log(f"[full] gemma-2b: {M.count_params(cfg) / 1e9:.3f} B parameters "
-        f"({cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s")
+        f"({cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s, "
+        f"output projections x{gain:.2f}")
     B, P, G, BS = 4, 32, 32, 16
     prompts = np.random.default_rng(1).integers(0, cfg.vocab, (B, P),
                                                 dtype=np.int32)
@@ -250,30 +377,46 @@ def phase_full_width(torch, dev):
     if launches != cfg.n_layers * eng.dispatches or launches == 0:
         raise AssertionError("the main path did not run through the kernel "
                              "once per layer per tick")
-    toks, top2 = generate(cfg, params, torch.from_numpy(prompts).to(dev), G,
-                          return_top2=True)
-    toks = toks[:, P:].cpu().tolist()
+    seq, top2 = generate(cfg, params, torch.from_numpy(prompts).to(dev), G,
+                         return_top2=True)
+    toks = seq[:, P:].cpu().tolist()
     top2 = top2.cpu()
-    log(f"[full] oracle's smallest top-2 logit gap over the run: "
-        f"{(top2[..., 0] - top2[..., 1]).min().item():.4f}")
+    distinct = [len(set(row)) for row in toks]
+    log(f"[full] generate: distinct tokens per stream {distinct}, smallest "
+        f"top-2 logit gap {(top2[..., 0] - top2[..., 1]).min().item():.4f}")
+    if min(distinct) <= 1:
+        raise AssertionError("full width: a stream repeats one token; it "
+                             "cannot tell a wrong attention")
+    # teacher-forced: the paged step's logits on generate's own tokens
+    tf_err, paged_err, own_err = teacher_forced(torch, dev, cfg, params,
+                                                seq, P, BS)
+    log(f"[full] teacher-forced logits over {B}x{P + G} positions: "
+        f"max|paged - generate's bf16| {tf_err:.4f}; against fp32: paged "
+        f"{paged_err:.4f}, generate's bf16 {own_err:.4f} (allowed "
+        f"{TF_RATIO:g}x)")
+    if not paged_err <= TF_RATIO * own_err:
+        raise AssertionError("full width: the paged step's logits are "
+                             "further from fp32 than bf16 rounding explains")
+    # a stream may leave generate's only where the oracle's top two
+    # logits are within the two paths' measured logit difference of each
+    # other: then rounding alone can swap them
+    allowed = 2 * tf_err
     exact = 0
     for b, rid in enumerate(ids):
         got, ref = results[rid], toks[b]
         t = next((i for i in range(G) if got[i] != ref[i]), None)
         if t is None:
             exact += 1
-            log(f"[full] request {rid}: {G} tokens identical to generate "
-                f"(distinct tokens {len(set(ref))})")
+            log(f"[full] request {rid}: {G} tokens identical to generate")
             continue
-        top, second = top2[b, t, 0].item(), top2[b, t, 1].item()
-        gap, allowed = top - second, BF16_TIE_ULPS * bf16_ulp(top)
+        gap = (top2[b, t, 0] - top2[b, t, 1]).item()
         log(f"[full] request {rid}: first divergence at token {t}: oracle "
-            f"top-2 gap {gap:.4f} (top logit {top:.2f}, allowed "
-            f"< {allowed:.4f})")
+            f"top-2 gap {gap:.4f} (allowed < {allowed:.4f})")
         if not gap < allowed:
             raise AssertionError(f"full width: request {rid} diverges at "
                                  f"token {t} with a clear top-2 gap {gap}")
     log(f"[full] {exact}/{B} streams identical to generate")
+    tick_breakdown(torch, cfg, params, prompts, G, kw)
     return launches, n_tok / wall
 
 
@@ -281,42 +424,38 @@ def phase_full_width(torch, dev):
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, reps=20, rounds=5, warmup=5):
-    """Milliseconds per call: the median over ``rounds`` of CUDA events
-    around ``reps`` back-to-back calls.  Where the call's host time
-    exceeds its device time, this is the host time."""
+def device_ms(torch, fn, reps=50, warmup=5):
+    """Device milliseconds per call: the summed device time of every
+    kernel and copy ``fn`` puts on the card (``torch.profiler``), over
+    ``reps`` calls.  The host's time to issue them is not in it."""
     for _ in range(warmup):
         fn()
-    per_call = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        per_call.append(a.elapsed_time(b) / reps)
-    return sorted(per_call)[rounds // 2]
+    return sum(r[0] for r in profiled(torch, fn, reps)) / reps / 1e3
 
 
 def bound(torch, c):
-    """Least time for the call's work on an H100 SXM: each input byte read
-    once and each output byte written once (the K/V rows the positions
-    reach, q, the fresh rows in and into the pools, out), or the
+    """Least time for the call's work on an H100 SXM: each byte the
+    function needs read once and each output byte written once, or the
     operations the live query rows need (4*D per key: QK and PV) at the
-    input type's peak, whichever is larger."""
+    input type's peak, whichever is larger.  Bytes: the cached K/V rows
+    the queries reach (those before a request's first fresh position,
+    within the window), q in and out, the live fresh rows in and into the
+    pools, the tables and positions; padded rows move no K/V."""
     B, S, H, D = c["q"].shape
     Hkv = c["kn"].shape[2]
     item = c["q"].element_size()
     pos = c["pos"].long()
-    ctx = (pos.max(dim=1).values + 1).clamp(min=0)
-    nbytes = (2 * int(ctx.sum()) * Hkv * D * item        # K, V rows read
+    live = pos >= 0
+    n_fresh = int(live.sum())
+    first = torch.where(live, pos, FULL).min(dim=1).values
+    first = torch.where(live.any(dim=1), first, 0)
+    cached = first - (first - c["window"] + 1).clamp(min=0)
+    nbytes = (2 * int(cached.sum()) * Hkv * D * item     # cached K, V read
               + 2 * B * S * H * D * item                 # q in, out
-              + 2 * 2 * B * S * Hkv * D * item           # fresh rows in+out
+              + 2 * 2 * n_fresh * Hkv * D * item         # fresh rows in+out
               + 4 * (c["tables"].numel() + c["pos"].numel()))
-    ops = 4 * D * H * int((pos + 1).clamp(min=0).sum())
+    keys = (pos + 1).clamp(min=0, max=c["window"])       # keys per query row
+    ops = 4 * D * H * int(keys.sum())
     dt = str(c["q"].dtype).split(".")[-1]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dt] * 1e3
@@ -341,8 +480,8 @@ def phase_timing(torch, dev):
                               c["pos"], window=FULL, softcap=0.0,
                               max_live_blocks=c["live"])
 
-        ms = time_ms(torch, run(kernel.paged_attention_update))
-        plain_ms = time_ms(torch, run(ref.unified_attention_update))
+        ms = device_ms(torch, run(kernel.paged_attention_update))
+        plain_ms = device_ms(torch, run(ref.unified_attention_update))
         # the library yardstick: SDPA on the same keys, pages pre-gathered
         B, S, H, D = c["q"].shape
         L = c["live"] * shape["BS"]
@@ -354,14 +493,14 @@ def phase_timing(torch, dev):
         qt = c["q"].transpose(1, 2)
         kt = k.transpose(1, 2).expand(B, H, L, D)           # MQA: one head
         vt = v.transpose(1, 2).expand(B, H, L, D)
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
         bound_ms, bound_by = bound(torch, c)
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[time] {label} {tuple(c['q'].shape)} bf16: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by})")
+        log(f"[time] {label} {tuple(c['q'].shape)} bf16, device time per "
+            f"call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
     return out
 
 

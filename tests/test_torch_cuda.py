@@ -65,10 +65,13 @@ def _on(dev, c, dtype):
     (torch.float32, 16, 2, 1e-4), (torch.float32, 64, 4, 1e-4),
     (torch.bfloat16, 256, 8, 3e-2), (torch.bfloat16, 64, 4, 3e-2)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, D, G, tol):
-    """Live-row outputs within ``tol`` (fp32: summation order; bf16: the
-    plain version rounds q * D^-0.5 to bf16, the kernel keeps it fp32) and
-    pools bit-equal, for a prefill chunk crossing pages plus decode and
-    idle rows, with and without a window and softcap."""
+    """Live-row outputs within ``tol`` and pools bit-equal, for a prefill
+    chunk crossing pages plus decode and idle rows, with and without a
+    window and softcap.  fp32: summation order.  bf16: the kernel rounds
+    the unnormalised p = exp(s - m) to bf16 and divides by l at the end,
+    the plain version rounds the normalised softmax, and both round the
+    output to bf16.  A kernel that skips the scatter (the fresh rows read
+    as stale page rows) must land outside ``tol``."""
     c = make_case(8, S=16, filled=[10, 21, 5, 0], ns=[16, 1, 9, 0],
                   Hkv=2, G=G, BS=16, MB=4, D=D)
     t = _on(cuda_device, c, dtype)
@@ -84,6 +87,11 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, D, G, tol):
         live = torch.from_numpy(c["pos"] >= 0).to(cuda_device)
         err = (res["kernel"][0].float() - res["plain"][0].float())[live]
         assert err.abs().max().item() <= tol
+        stale = pa_ref.paged_attention(
+            t["q"], t["kp"], t["vp"], t["tables"], t["pos"], window=window,
+            softcap=softcap, max_live_blocks=c["live"])
+        wrong = (stale.float() - res["plain"][0].float())[live]
+        assert wrong.abs().max().item() > tol
         assert torch.isfinite(res["kernel"][0].float()).all()
         for i in (1, 2):
             assert torch.equal(res["kernel"][i][1:], res["plain"][i][1:])
