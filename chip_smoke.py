@@ -31,7 +31,29 @@ Phases, each raising on failure:
   6. device time per call (``torch.profiler``) of the kernel, its plain
      version and one PyTorch library call (``scaled_dot_product_attention``
      over pre-gathered pages, a yardstick the port never calls) at the
-     decode and prefill shapes, beside the kernel's bound.
+     decode and prefill shapes, beside the kernel's bound;
+  7. the CATopt fitness kernel against its plain version on the card: sq
+     within ``FIT_RTOL`` relative at the paper's scale (E 8192, m 2048,
+     P 200) and the polish's (P 4) on a ``make_problem`` instance, at two
+     ragged shapes of ``test_recovery_vs_ref`` and at att < 0.  Two
+     known-wrong readings (the clip dropped, the last tile of events
+     dropped) must land outside the tolerance.  The autograd backward must
+     match plain autograd's gradient;
+  8. CATopt at the paper's scale through the five verbs (volume, problem
+     on the card, instance, project sync, ``run_on_instance`` running
+     ``optimize_island`` under ``GAConfig()``: population 200, 50
+     generations, polish 4 x 5 steps; results; terminate).  The best
+     fitness must never rise and must end below its start, the best w
+     must score its fitness under the plain version, and the kernel's
+     launches must equal ``1 + generations x (polish_steps + 2)`` = 351.
+     Then a Monte-Carlo sweep (4096 points x 4096 steps) through
+     ``SweepEngine`` over the card, every point back once and equal to
+     ``sweep_vmapped``.  Then generations/s, and wall and device time per
+     generation under ``torch.profiler`` with the top kernels;
+  9. device time per call of the fitness kernel, its plain version and
+     the library route (``torch.matmul`` + the clamp/sub/square/sum
+     epilogue in torch, fp32, TF32 off) at the paper's scale and the
+     polish's, beside the kernel's bound.
 
 The last two lines are the kernel report (JSON) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -41,6 +63,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +85,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 KERNEL_REPLACES = "src/repro/kernels/paged_attention/kernel.py:332"
+FIT_SOURCE = "src/repro_torch/kernels/recovery/csrc/fitness.cu"
+FIT_REPLACES = "src/repro/kernels/recovery/kernel.py:52"
+# phase 7, max |kernel - plain| / |plain| of sq: fp32 sums taken in another
+# order (an fp64 reference puts the plain version within 4e-7 on
+# test_recovery_vs_ref's inputs).  Phase 7 prints what a known-wrong
+# reading gives beside it.
+FIT_RTOL = 1e-5
+GRAD_RTOL = 1e-4         # phase 7: max |grad diff| / max |grad|
+PAPER = dict(E=8192, m=2048, P=200)   # catopt.make_problem, GAConfig()
 
 
 def log(*a):
@@ -504,6 +536,311 @@ def phase_timing(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the fitness kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fitness_cases(torch, dev, problem):
+    """(name, il, w, target, att, limit) at the main path's shapes on the
+    paper's problem, and at test_recovery_vs_ref's ragged shapes.  On the
+    problem, row p of w is uniform times a scale from 0 to 0.3, so the
+    rows' losses run from below the attachment to far above the limit
+    and both clips and the live band all carry weight."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    il, target = problem.industry_losses, problem.target_recovery
+    E, m = il.shape
+
+    def pop(P):
+        scale = torch.linspace(0.0, 0.3, P, device=dev)[:, None]
+        return torch.rand((P, m), generator=g, device=dev) * scale
+
+    def recovery_case(E, m, P):
+        return (torch.randn((E, m), generator=g, device=dev).abs(),
+                torch.rand((P, m), generator=g, device=dev),
+                torch.randn(E, generator=g, device=dev).abs())
+
+    cases = [(f"paper scale E {E} m {m} P {PAPER['P']}", il, pop(PAPER["P"]),
+              target, problem.attachment, problem.limit),
+             (f"polish E {E} m {m} P 4", il, pop(4), target,
+              problem.attachment, problem.limit)]
+    for E_, m_, P_, att, limit in ((500, 300, 37, 5.0, 20.0),
+                                   (1024, 256, 8, 5.0, 20.0),
+                                   (500, 300, 37, -4.0, 124.0)):
+        il_, w_, t_ = recovery_case(E_, m_, P_)
+        cases.append((f"E {E_} m {m_} P {P_} att {att:g} limit {limit:g}",
+                      il_, w_, t_, att, limit))
+    return cases
+
+
+def phase_fitness_vs_plain(torch, dev, problem):
+    """Returns (max abs error of sq at the paper's scale, max relative
+    error of sq over all cases)."""
+    from repro_torch.kernels.recovery import kernel, ops, ref
+    worst_rel, paper_abs = 0.0, None
+    for name, il, w, target, att, limit in fitness_cases(torch, dev,
+                                                         problem):
+        got = kernel.fitness_sq(il, w, target, att, limit)
+        want = ref.fitness_sq(il, w, target, att, limit)
+        sync(torch, dev)
+
+        def rel(x):
+            return ((x - want).abs() / want.abs()).max().item()
+
+        err = rel(got)
+        E = il.shape[0]
+        cut = (E - 1) // kernel.BLOCK_EVENTS * kernel.BLOCK_EVENTS
+        wrong = {"clip dropped": rel(torch.square(
+                     torch.matmul(w, il.T) - att - target).sum(-1)),
+                 "last event tile dropped": rel(ref.fitness_sq(
+                     il[:cut], w, target[:cut], att, limit))}
+        finite = bool(torch.isfinite(got).all())
+        log(f"[fitness] {name}: max|kernel - plain|/|plain| = {err:.3e} "
+            f"(tol {FIT_RTOL:g}; a wrong kernel: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in wrong.items())
+            + f"), finite {finite}")
+        if not (err <= FIT_RTOL and finite):
+            raise AssertionError(f"fitness kernel disagrees with plain: "
+                                 f"{name}")
+        if min(wrong.values()) <= FIT_RTOL:
+            raise AssertionError(f"tolerance {FIT_RTOL} cannot tell a wrong "
+                                 f"kernel from a right one: {name}")
+        if paper_abs is None:
+            paper_abs = (got - want).abs().max().item()
+        worst_rel = max(worst_rel, err)
+    # the backward: the autograd Function against plain autograd, on the
+    # polish's shape with rows spread over the live band, and a budget no
+    # row reaches, so the gradient is the fitness's alone
+    il, target = problem.industry_losses, problem.target_recovery
+    w = torch.rand((4, il.shape[1]), generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev)
+    w = w * torch.tensor([0.02, 0.05, 0.1, 0.2], device=dev)[:, None]
+    budget = 2 * float(w.sum(-1).max())
+    grads = []
+    for fn in (ops.basis_risk, ref.basis_risk):
+        wt = w.clone().requires_grad_(True)
+        fn(il, target, wt, problem.attachment, problem.limit,
+           budget).sum().backward()
+        grads.append(wt.grad)
+    sync(torch, dev)
+    gerr = ((grads[0] - grads[1]).abs().max()
+            / grads[1].abs().max()).item()
+    log(f"[fitness] backward (4, {il.shape[1]}): max|grad - plain grad| / "
+        f"max|plain grad| = {gerr:.3e} (tol {GRAD_RTOL:g})")
+    if not gerr <= GRAD_RTOL:
+        raise AssertionError("fitness backward disagrees with plain autograd")
+    return paper_abs, worst_rel
+
+
+# ---------------------------------------------------------------------------
+# phase 8: CATopt through the five verbs, and a Monte-Carlo sweep
+# ---------------------------------------------------------------------------
+
+def ga_breakdown(torch, dev, problem, cfg, gens=5):
+    """Wall and device busy time per GA generation at the paper's scale,
+    and the kernels that take the most device time."""
+    from repro_torch.core import catopt
+    gen = torch.Generator(device=dev).manual_seed(9)
+    draws = catopt.Draws(gen, cfg.pop_size, problem.n_dims, cfg, dev)
+    arrays = problem.arrays()
+    with torch.no_grad():
+        pop = catopt._init_pop(gen, cfg.pop_size, problem.n_dims, dev)
+        carry = (pop, catopt.basis_risk(problem, pop))
+
+        def step():
+            nonlocal carry
+            carry, _ = catopt._ga_generation(arrays, cfg, carry, draws(0))
+
+        step()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(gens):
+            step()
+        sync(torch, dev)
+        wall = (time.perf_counter() - t0) / gens * 1e3
+        rows = profiled(torch, step, gens)
+    busy = sum(r[0] for r in rows) / gens / 1e3
+    log(f"[catopt] generation (P {cfg.pop_size}, polish {cfg.polish_k} x "
+        f"{cfg.polish_steps}): wall {wall:.3f} ms, device busy {busy:.3f} "
+        f"ms, idle share {1 - busy / wall:.3f}")
+    for us, n, key in rows[:10]:
+        log(f"[catopt]   {us / gens / 1e3:.4f} ms x{n // gens}  {key[:90]}")
+
+
+def mc_price(pt):
+    """examples/param_sweep.py's Monte-Carlo option price for one sweep
+    point, its noise given with the point."""
+    import torch
+    path = torch.exp(torch.cumsum(pt["z"] * pt["sigma"] + pt["drift"], 0)
+                     * 0.001)
+    return {"price": torch.clamp(path[-1] - 1.0, min=0.0), "idx": pt["idx"]}
+
+
+def phase_sweep(torch, dev, n=4096, steps=4096):
+    import numpy as np
+    from repro_torch.core.sweep import SweepEngine, sweep_vmapped
+    g = torch.Generator(device=dev).manual_seed(11)
+    pts = {"z": torch.randn((n, steps), generator=g, device=dev),
+           "sigma": torch.linspace(0.1, 2.0, n, device=dev),
+           "drift": torch.linspace(-0.5, 0.5, n, device=dev),
+           "idx": torch.arange(n, device=dev)}
+    fast = sweep_vmapped(mc_price, pts, device=dev)
+    engine = SweepEngine(None if dev.type == "cuda" else [dev],
+                         placement="bynode", over_decompose=4)
+    out = engine.run(mc_price, pts)
+    rep = engine.last_report
+    want = fast["price"].cpu().numpy()
+    diff = float(np.abs(out["price"] - want).max())
+    log(f"[sweep] {n} points x {steps} steps on {len(engine.devices)} "
+        f"device(s): {rep.n_tasks} tasks, {rep.n_stolen} stolen, "
+        f"{rep.n_speculated} speculated, wall {rep.wall_time:.3f} s; "
+        f"max|engine - vmapped| {diff:.3e}, mean price {want.mean():.4f}")
+    if not np.array_equal(out["idx"], np.arange(n)):
+        raise AssertionError("sweep: a point is missing or repeated")
+    if sum(rep.device_task_counts.values()) != rep.n_tasks:
+        raise AssertionError("sweep: a task came back twice or not at all")
+    np.testing.assert_allclose(out["price"], want, rtol=1e-5, atol=1e-6)
+    if not np.isfinite(want).all() or not (want > 0).any():
+        raise AssertionError("sweep: prices are not finite and positive")
+
+
+def phase_catopt(torch, dev, problem):
+    """CATopt at the paper's scale through the five verbs.  Returns the
+    fitness kernel's launches in the run and generations/s."""
+    import numpy as np
+    from repro_torch.core.catopt import GAConfig, optimize_island, \
+        problem_from_numpy
+    from repro_torch.core.platform import Platform
+    from repro_torch.core.resources import DevicePool
+    from repro_torch.kernels.recovery import kernel, ref
+    cfg = GAConfig()
+    ws = os.path.join(HERE, "build", "chip_smoke_platform")
+    shutil.rmtree(ws, ignore_errors=True)
+    try:
+        platform = Platform(ws, pool=None if dev.type == "cuda"
+                            else DevicePool([dev]))
+        vol = platform.create_volume()                              # 1
+        t0 = time.perf_counter()
+        vol.put("catopt_problem", {                                 # 2
+            "il": problem.industry_losses,
+            "target": problem.target_recovery,
+            "scalars": np.array([problem.attachment, problem.limit,
+                                 problem.weight_budget])})
+        put_s = time.perf_counter() - t0
+        platform.create_instance("catopt", volume=vol.volume_id)   # 3
+        stats = platform.send_data_to_cluster(                      # 4
+            "catopt", project={"seed": np.array(1)})
+
+        def job(ctx):
+            d = ctx.volume.get("catopt_problem")
+            att, limit, budget = d["scalars"].tolist()
+            prob = problem_from_numpy(d["il"], d["target"], att, limit,
+                                      budget, device=ctx.cluster.master)
+            if not torch.equal(prob.industry_losses,
+                               problem.industry_losses):
+                raise AssertionError("the volume did not give the problem "
+                                     "back")
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            res = optimize_island(prob, cfg, seed=int(ctx.project["seed"]),
+                                  device=ctx.cluster.master)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            ctx.save_result("catopt", {"w": res["w"],
+                                       "history": res["history"]})
+            return {"fitness": float(res["fitness"]), "wall_s": wall,
+                    "history": res["history"].tolist()}
+
+        kernel.launches = 0
+        h = platform.run_on_instance("catopt", job,                 # 5
+                                     runname="catopt-paper")
+        launches = kernel.launches
+        saved = np.load(os.path.join(platform.get_results("catopt-paper"),
+                                     "catopt.npz"))                 # 6
+        platform.terminate_cluster("catopt", delete_volume=True)   # 7
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    hist = np.array(h.result["history"])
+    w = torch.from_numpy(saved["1"]).to(dev)            # leaves: history, w
+    plain = float(ref.basis_risk(problem.industry_losses,
+                                 problem.target_recovery, w[None],
+                                 problem.attachment, problem.limit,
+                                 problem.weight_budget)[0])
+    expect = 1 + cfg.generations * (cfg.polish_steps + 2)
+    gens_s = cfg.generations / h.result["wall_s"]
+    log(f"[catopt] E {problem.n_events} m {problem.n_dims}, pop "
+        f"{cfg.pop_size}, {cfg.generations} generations: volume put "
+        f"{put_s:.2f} s, sync sent {stats.entries_sent} entries; GA "
+        f"{h.result['wall_s']:.3f} s = {gens_s:.2f} generations/s; best "
+        f"fitness {hist[0]:.4f} -> {hist[-1]:.4f} (plain version on the "
+        f"saved w: {plain:.4f}); kernel launches {launches} (1 + "
+        f"generations {cfg.generations} x (polish_steps {cfg.polish_steps}"
+        f" + 2) = {expect})")
+    if not (np.diff(hist) <= 0).all() or not hist[-1] < hist[0]:
+        raise AssertionError("CATopt: the best fitness rose, or never fell")
+    if not np.array_equal(saved["0"], hist):
+        raise AssertionError("CATopt: get_results does not hold the run's "
+                             "history")
+    if not abs(plain - h.result["fitness"]) <= 1e-4 * plain:
+        raise AssertionError("CATopt: the best w does not score its fitness")
+    if launches != expect:
+        raise AssertionError("CATopt: the GA did not run through the kernel "
+                             "once per fitness call")
+    phase_sweep(torch, dev)
+    ga_breakdown(torch, dev, problem, cfg)
+    return launches, gens_s
+
+
+# ---------------------------------------------------------------------------
+# phase 9: fitness timing
+# ---------------------------------------------------------------------------
+
+def fitness_bound(E, m, P):
+    """Least time for the call on an H100 SXM: IL, w and target read once
+    and sq written once at the HBM rate, or the matrix product's 2 E m P
+    operations plus the epilogue's (subtract, two compares, subtract,
+    square, add: 6 per event and individual) at the fp32 peak, whichever
+    is larger."""
+    nbytes = 4 * (E * m + P * m + E + P)
+    ops = 2 * E * m * P + 6 * E * P
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fitness_timing(torch, dev, problem):
+    from repro_torch.kernels.recovery import kernel, ref
+    il, target = problem.industry_losses, problem.target_recovery
+    att, limit = problem.attachment, problem.limit
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for label, P in (("paper", PAPER["P"]), ("polish", 4)):
+        w = torch.rand((P, il.shape[1]), generator=g, device=dev) * 0.1
+
+        def library():
+            loss = torch.matmul(w, il.T)
+            return torch.square(torch.clamp(loss - att, 0.0, limit)
+                                - target).sum(-1)
+
+        ms = device_ms(torch, lambda: kernel.fitness_sq(il, w, target, att,
+                                                        limit))
+        plain_ms = device_ms(torch, lambda: ref.fitness_sq(il, w, target,
+                                                           att, limit))
+        library_ms = device_ms(torch, library)
+        bound_ms, bound_by = fitness_bound(il.shape[0], il.shape[1], P)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[time] fitness {label} E {il.shape[0]} m {il.shape[1]} P {P} "
+            f"fp32, device time per call: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, matmul + epilogue {library_ms:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -521,6 +858,12 @@ def main():
     phase_reduced_exact(torch, dev)
     launches, tok_s = phase_full_width(torch, dev)
     timing = phase_timing(torch, dev)
+    from repro_torch.core.catopt import make_problem
+    problem = make_problem(seed=0, n_events=PAPER["E"], n_dims=PAPER["m"],
+                           device=dev)
+    fit_abs, fit_rel = phase_fitness_vs_plain(torch, dev, problem)
+    fit_launches, _ = phase_catopt(torch, dev, problem)
+    fit = phase_fitness_timing(torch, dev, problem)["paper"]
     dec = timing["decode"]
     report = {"kernels": [{
         "name": "paged_attention_update", "route": "cuda",
@@ -528,7 +871,14 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"]}]}
+        "library_ms": dec["library_ms"]}, {
+        "name": "fitness_sq", "route": "cuda",
+        "source": FIT_SOURCE, "replaces": FIT_REPLACES,
+        "launches": fit_launches, "max_abs_err": fit_abs,
+        "max_rel_err": fit_rel,
+        "ms": fit["ms"], "plain_ms": fit["plain_ms"],
+        "bound_ms": fit["bound_ms"], "bound_by": fit["bound_by"],
+        "library_ms": fit["library_ms"]}]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {gpu}")
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {

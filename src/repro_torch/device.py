@@ -1,7 +1,7 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -17,3 +17,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError("no CUDA device is present; pass device='cpu' "
                            "to run the plain PyTorch path on the CPU")
     return dev
+
+
+def cuda_devices() -> List[torch.device]:
+    """Every CUDA device, the default pool of the platform, the sweep
+    engine and the island GA.  Raises when there is no GPU."""
+    resolve_device()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -137,3 +137,83 @@ def test_cuda_engine_token_exact(cuda_device):
         ref = generate(cfg, params, torch.from_numpy(p)[None].to(cuda_device),
                        6)
         assert results[rid] == ref[0, len(p):].tolist()
+
+
+# --- the CATopt fitness kernel ----------------------------------------------
+
+def fitness_case(dev, seed, E, m, P, att=5.0, limit=20.0):
+    """test_recovery_vs_ref's inputs (|normal| losses and targets, uniform
+    weights), drawn with numpy and moved to ``dev``."""
+    rng = np.random.default_rng(seed)
+    il = np.abs(rng.standard_normal((E, m))).astype(np.float32)
+    w = rng.uniform(size=(P, m)).astype(np.float32)
+    target = np.abs(rng.standard_normal(E)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(il), t(w), t(target), att, limit
+
+
+FIT_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("E,m,P,att,limit", [
+    (256, 128, 16, 5.0, 20.0), (500, 300, 37, 5.0, 20.0),
+    (128, 512, 64, 5.0, 20.0), (1024, 256, 8, 5.0, 20.0),
+    (500, 300, 37, -4.0, 124.0), (777, 130, 65, 45.0, 20.0)])
+def test_cuda_fitness_matches_plain(cuda_device, E, m, P, att, limit):
+    """sq within FIT_RTOL relative of the plain version (fp32 sums in
+    another order), at test_recovery_vs_ref's shapes, an att < 0 case and
+    one ragged in every tile dimension whose losses straddle both clips.
+    Dropping the clip, or the last tile of events, lands outside it."""
+    from repro_torch.kernels.recovery import kernel, ref
+    il, w, target, att, limit = fitness_case(cuda_device, E, E + m + P, m,
+                                             P, att, limit)
+    got = kernel.fitness_sq(il, w, target, att, limit)
+    want = ref.fitness_sq(il, w, target, att, limit)
+    torch.cuda.synchronize()
+
+    def rel(x):
+        return ((x - want).abs() / want.abs()).max().item()
+
+    assert rel(got) <= FIT_RTOL
+    no_clip = torch.square(w @ il.T - att - target).sum(-1)
+    cut = (E - 1) // kernel.BLOCK_EVENTS * kernel.BLOCK_EVENTS
+    last_tile_dropped = ref.fitness_sq(il[:cut], w, target[:cut], att, limit)
+    assert rel(no_clip) > FIT_RTOL and rel(last_tile_dropped) > FIT_RTOL
+
+
+def test_cuda_fitness_deterministic_and_row_local(cuda_device):
+    """Bit-equal across calls, and a row's sq does not depend on the
+    population around it (the GA compares clones' fitness)."""
+    from repro_torch.kernels.recovery import kernel
+    il, w, target, att, limit = fitness_case(cuda_device, 5, 700, 200, 90)
+    a = kernel.fitness_sq(il, w, target, att, limit)
+    b = kernel.fitness_sq(il, w, target, att, limit)
+    c = kernel.fitness_sq(il, w[70:75].contiguous(), target, att, limit)
+    assert torch.equal(a, b) and torch.equal(a[70:75], c)
+
+
+def test_cuda_fitness_gradient_matches_plain(cuda_device):
+    """The autograd Function's backward (plain products) against autograd
+    through the plain version, on the card.  Losses straddle both clips;
+    no row reaches the budget, so the gradient is the fitness's alone."""
+    from repro_torch.kernels.recovery import ops, ref
+    il, w, target, att, limit = fitness_case(cuda_device, 6, 1000, 300, 4)
+    w = w * (2 * (att + limit / 2) / (0.8 * 300))
+    il = il * torch.linspace(0, 3, 1000, device=cuda_device)[:, None]
+    budget = 2 * float(w.sum(-1).max())
+    grads = []
+    for fn in (ops.basis_risk, ref.basis_risk):
+        wt = w.clone().requires_grad_(True)
+        fn(il, target, wt, att, limit, budget).sum().backward()
+        grads.append(wt.grad)
+    torch.cuda.synchronize()
+    err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
+    assert err.item() <= 1e-4
+
+
+def test_cuda_fitness_counts_launches(cuda_device):
+    from repro_torch.kernels.recovery import kernel, ops
+    il, w, target, att, limit = fitness_case(cuda_device, 7, 64, 16, 3)
+    before = kernel.launches
+    ops.basis_risk(il, target, w, att, limit, 30.0)
+    assert kernel.launches == before + 1
