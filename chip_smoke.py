@@ -15,6 +15,18 @@ Phases, each raising on failure:
      rows, 4 padded).  Live-row outputs within the stated tolerance, which
      must lie below what two known-wrong kernels give (scatter skipped,
      last page dropped); pools bit-equal after the scatter;
+  3b. the rest of the paged-attention family against its plain versions
+     at the main paths' shapes: the fused update over int8 pools (gemma-2b
+     decode, the decode bucket, the prefill bucket, window + softcap,
+     granite-3-2b GQA at D 64, reduced fp32), K/V and scale pools
+     bit-equal, outputs within the tolerance, which must lie below a walk
+     that skips the scales and one that skips the scatter; the read-only
+     walk over fp and int8 pools, pools unchanged, below a walk that drops
+     the last page (or skips the scales); copy_page on bf16, int8 and
+     fp32 scale pools with host and device ids, the destination bit-equal
+     to the source in every layer, every other page untouched, a copy
+     that stops at layer 0 reading above 0, and bad device ids setting
+     the error flag;
   4. reduced granite-3-2b in fp32: the paged engine's streams must equal
      the port's isolated greedy ``generate`` token for token, for ragged
      prompts with mid-flight admission;
@@ -28,10 +40,23 @@ Phases, each raising on failure:
      divergence where the oracle's top-2 gap is under twice the two paths'
      measured logit difference.  Then wall and device time per decode
      tick, under ``torch.profiler``;
+  5b. gemma-2b at full width through the engine's ported options, each
+     run with the launch counts set to 0 just before it: int8 pages (the
+     int8 update's launches must equal n_layers x ticks, every request
+     finishes); the unified and the two-dispatch tick (streams equal);
+     the prefix cache on a 48-token system prompt with distinct 112-token
+     suffixes and one prompt repeated in full (streams byte-equal to the cache off,
+     hits, copy-on-write copies through copy_page).  Over the pools the
+     int8 and fp runs filled, mid-decode, the read-only walk (the public
+     ``paged_attn.paged_attention``) against its plain version;
   6. device time per call (``torch.profiler``) of the kernel, its plain
      version and one PyTorch library call (``scaled_dot_product_attention``
      over pre-gathered pages, a yardstick the port never calls) at the
      decode and prefill shapes, beside the kernel's bound;
+  6b. the same for the int8 update (decode and prefill; with the wrapper's
+     quantize, and the walk alone), the read-only walk over fp and int8
+     pools (decode), against SDPA over the gathered and dequantized pages,
+     and copy_page on gemma-2b's K pool against ``index_copy_``;
   7. the CATopt fitness kernel against its plain version on the card: sq
      within ``FIT_RTOL`` relative at the paper's scale (E 8192, m 2048,
      P 200) and the polish's (P 4) on a ``make_problem`` instance, at two
@@ -85,6 +110,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 KERNEL_REPLACES = "src/repro/kernels/paged_attention/kernel.py:332"
+INT8_REPLACES = "src/repro/kernels/paged_attention/kernel.py:158"
+READONLY_REPLACES = "src/repro/kernels/paged_attention/kernel.py:315"
+COPY_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/copy_page.cu"
+COPY_REPLACES = "src/repro/kernels/paged_attention/kernel.py:278"
 FIT_SOURCE = "src/repro_torch/kernels/recovery/csrc/fitness.cu"
 FIT_REPLACES = "src/repro/kernels/recovery/kernel.py:52"
 # phase 7, max |kernel - plain| / |plain| of sq: fp32 sums taken in another
@@ -220,6 +249,203 @@ def phase_kernel_vs_plain(torch, dev):
             raise AssertionError(f"tolerance {tol} cannot tell a wrong "
                                  f"kernel from a right one: {name}")
         worst = max(worst, err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the rest of the family against its plain versions
+# ---------------------------------------------------------------------------
+
+def quantized(torch, c):
+    """The case's random pools as the engine fills int8 pages: rows
+    quantized by ``ref.quantize_rows`` (int8 pools, fp32 scale pools)."""
+    from repro_torch.kernels.paged_attention import ref
+    kq, ks = ref.quantize_rows(c["kp"])
+    vq, vs = ref.quantize_rows(c["vp"])
+    return dict(c, kq=kq, vq=vq, ks=ks, vs=vs)
+
+
+def call_int8(fn, c):
+    return fn(c["q"], c["kn"], c["vn"], c["kq"].clone(), c["vq"].clone(),
+              c["tables"], c["pos"], window=c["window"], softcap=c["softcap"],
+              max_live_blocks=c["live"], k_scale=c["ks"].clone(),
+              v_scale=c["vs"].clone())
+
+
+def readonly(fn, c, quant, live=None):
+    kw = dict(k_scale=c["ks"], v_scale=c["vs"]) if quant else {}
+    return fn(c["q"], c["kq"] if quant else c["kp"],
+              c["vq"] if quant else c["vp"], c["tables"], c["pos"],
+              window=c["window"], softcap=c["softcap"],
+              max_live_blocks=c["live"] if live is None else live, **kw)
+
+
+def judge(name, err, tol, wrong, extra=""):
+    """Log one comparison; raise unless ``err`` is within ``tol`` and every
+    known-wrong reading lies above it."""
+    log(f"[kernel] {name}: max|kernel - plain| = {err:.3e} (tol {tol:g}; "
+        f"a wrong kernel: " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in wrong.items())
+        + f"){extra}")
+    if not err <= tol:
+        raise AssertionError(f"kernel disagrees with plain: {name}")
+    if min(wrong.values()) <= tol:
+        raise AssertionError(f"tolerance {tol} cannot tell a wrong kernel "
+                             f"from a right one: {name}")
+
+
+def phase_family_vs_plain(torch, dev):
+    """The int8 update, the read-only walk (fp and int8) and copy_page
+    against their plain versions at the main paths' shapes.  Returns the
+    worst max |kernel - plain| of each: {"int8", "readonly", "copy"}."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=bf16)
+    granite = dict(H=32, Hkv=8, D=64, BS=16, dtype=bf16)
+    worst = {"int8": 0.0, "readonly": 0.0, "copy": 0.0}
+    # -- the fused update over int8 pools: pools bit-equal ----------------
+    cases = [
+        ("int8 gemma-2b decode S=1 B=4", dict(
+            B=4, S=1, starts=[40, 47, 33, 63], ns=[1, 1, 1, 1], **gemma), {}),
+        ("int8 gemma-2b decode bucket S=1 B=8, 4 padded", dict(
+            B=8, S=1, starts=[40, 0, 47, 0, 33, 0, 63, 0],
+            ns=[1, 0, 1, 0, 1, 0, 1, 0], **gemma), {}),
+        ("int8 gemma-2b prefill bucket S=16 B=4", dict(
+            B=4, S=16, starts=[8, 20, 0, 40], ns=[16, 16, 11, 16], **gemma),
+         {}),
+        ("int8 granite-3-2b GQA prefill S=16 D=64", dict(
+            B=3, S=16, starts=[0, 9, 50], ns=[16, 7, 16], **granite), {}),
+        ("int8 gemma-2b window 24 + softcap 50", dict(
+            B=4, S=16, starts=[30, 0, 60, 17], ns=[16, 16, 5, 1], **gemma),
+         dict(window=24, softcap=50.0)),
+        ("int8 reduced fp32 D=16 G=2", dict(
+            B=3, S=5, starts=[3, 0, 9], ns=[5, 2, 1], H=4, Hkv=2, D=16, BS=4,
+            dtype=f32), dict(window=6)),
+    ]
+    for i, (name, shape, extra) in enumerate(cases):
+        c = quantized(torch, dict(make_case(torch, dev, 200 + i, **shape),
+                                  **extra))
+        want = call_int8(ref.unified_attention_update, c)
+        got = call_int8(kernel.paged_attention_update, c)
+        torch.cuda.synchronize()
+        live = c["pos"] >= 0
+
+        def max_err(out):
+            return (out.float() - want[0].float())[live].abs().max().item()
+
+        ones = torch.ones_like(c["ks"])
+        wrong = {"scales skipped": max_err(ref.paged_attention(
+                     c["q"], want[1], want[2], c["tables"], c["pos"],
+                     window=c["window"], softcap=c["softcap"],
+                     max_live_blocks=c["live"], k_scale=ones, v_scale=ones)),
+                 "scatter skipped": max_err(readonly(ref.paged_attention, c,
+                                                     True))}
+        tol = TOL[str(shape["dtype"]).split(".")[-1]]
+        pools_equal = all(torch.equal(got[j], want[j]) for j in range(1, 5))
+        finite = bool(torch.isfinite(got[0].float()).all())
+        judge(name, max_err(got[0]), tol, wrong,
+              f", pools and scale pools bit-equal {pools_equal}, finite "
+              f"{finite}")
+        if not (pools_equal and finite):
+            raise AssertionError(f"int8 update: pools differ or non-finite "
+                                 f"output: {name}")
+        worst["int8"] = max(worst["int8"], max_err(got[0]))
+    # -- the read-only walk, fp and int8: pools unchanged -----------------
+    cases = [
+        ("gemma-2b decode S=1 B=4", dict(
+            B=4, S=1, starts=[40, 47, 33, 63], ns=[1, 1, 1, 1], **gemma), {}),
+        ("gemma-2b chunk S=16 B=4", dict(
+            B=4, S=16, starts=[8, 20, 0, 40], ns=[16, 16, 11, 16], **gemma),
+         {}),
+        ("granite-3-2b GQA decode D=64", dict(
+            B=4, S=1, starts=[5, 70, 31, 0], ns=[1, 1, 1, 0], **granite), {}),
+        ("gemma-2b window 24 + softcap 50", dict(
+            B=4, S=16, starts=[30, 0, 60, 17], ns=[16, 16, 5, 1], **gemma),
+         dict(window=24, softcap=50.0)),
+        ("reduced fp32 D=16 G=2", dict(
+            B=3, S=5, starts=[3, 0, 9], ns=[5, 2, 1], H=4, Hkv=2, D=16, BS=4,
+            dtype=f32), dict(window=6)),
+    ]
+    for i, (name, shape, extra) in enumerate(cases):
+        c = quantized(torch, dict(make_case(torch, dev, 300 + i, **shape),
+                                  **extra))
+        live = c["pos"] >= 0
+        for quant in (False, True):
+            pools = ([c["kq"], c["vq"], c["ks"], c["vs"]] if quant
+                     else [c["kp"], c["vp"]])
+            before = [x.clone() for x in pools]
+            want = readonly(ref.paged_attention, c, quant).float()
+            got = readonly(kernel.paged_attention, c, quant)
+            torch.cuda.synchronize()
+
+            def max_err(out):
+                return (out.float() - want)[live].abs().max().item()
+
+            wrong = {}
+            if c["live"] > 1:
+                wrong["last page dropped"] = max_err(readonly(
+                    ref.paged_attention, c, quant, live=c["live"] - 1))
+            if quant:
+                ones = torch.ones_like(c["ks"])
+                wrong["scales skipped"] = max_err(ref.paged_attention(
+                    c["q"], c["kq"], c["vq"], c["tables"], c["pos"],
+                    window=c["window"], softcap=c["softcap"],
+                    max_live_blocks=c["live"], k_scale=ones, v_scale=ones))
+            unchanged = all(torch.equal(x, y) for x, y in zip(pools, before))
+            tol = TOL[str(shape["dtype"]).split(".")[-1]]
+            judge(f"read-only {'int8' if quant else 'fp'} {name}",
+                  max_err(got), tol, wrong,
+                  f", pools unchanged {unchanged}")
+            if not unchanged:
+                raise AssertionError(f"read-only walk wrote a pool: {name}")
+            worst["readonly"] = max(worst["readonly"], max_err(got))
+    # -- copy_page: dst == src in every layer, nothing else moves ---------
+    g = torch.Generator(device=dev).manual_seed(400)
+    L, NB = 18, 17                      # gemma-2b's pools at batch 4
+    k_pool = torch.randn((L, NB, 16, 1, 256), generator=g,
+                         device=dev).to(bf16)
+    pools = {"bf16 K pool (18, 17, 16, 1, 256)": k_pool,
+             "int8 K pool (18, 17, 16, 1, 256)": ref.quantize_rows(k_pool)[0],
+             "fp32 scale pool (18, 17, 16, 1)":
+                 ref.quantize_rows(k_pool)[1].contiguous()}
+    for name, pool in pools.items():
+        for src, dst in ((3, 7), (12, 2)):
+            before = pool.clone()
+            device_ids = src == 12
+            if device_ids:
+                kernel.copy_page(pool, torch.tensor([src, dst],
+                                                    dtype=torch.int32,
+                                                    device=dev))
+            else:
+                kernel.copy_page(pool, src, dst)
+            torch.cuda.synchronize()
+            keep = [p for p in range(NB) if p != dst]
+
+            def mismatch(p):
+                return (p[:, dst].float() - before[:, src].float()).abs() \
+                    .max().item()
+
+            stops = before.clone()
+            stops[0, dst] = before[0, src]
+            wrong = {"stops at layer 0": mismatch(stops)}
+            untouched = torch.equal(pool[:, keep], before[:, keep])
+            judge(f"copy_page {name} {src} -> {dst} "
+                  f"({'device' if device_ids else 'host'} ids)",
+                  mismatch(pool), 0.0, wrong,
+                  f", other pages untouched {untouched}")
+            if not untouched:
+                raise AssertionError(f"copy_page moved another page: {name}")
+            worst["copy"] = max(worst["copy"], mismatch(pool))
+    before = k_pool.clone()
+    for bad in ([4, 4], [0, NB], [-1, 3]):
+        kernel.copy_page(k_pool, torch.tensor(bad, dtype=torch.int32,
+                                              device=dev))
+        if kernel.copy_page_errors(dev) != 1:
+            raise AssertionError(f"copy_page took bad device ids {bad}")
+    if not torch.equal(k_pool, before) or kernel.copy_page_errors(dev):
+        raise AssertionError("copy_page wrote with bad device ids")
+    log("[kernel] copy_page: bad device ids [4, 4], [0, 17], [-1, 3] set "
+        "the error flag and copy nothing")
     return worst
 
 
@@ -449,42 +675,258 @@ def phase_full_width(torch, dev):
                                  f"token {t} with a clear top-2 gap {gap}")
     log(f"[full] {exact}/{B} streams identical to generate")
     tick_breakdown(torch, cfg, params, prompts, G, kw)
-    return launches, n_tok / wall
+    return dict(launches=launches, tokens_per_s=n_tok / wall, cfg=cfg,
+                params=params, prompts=prompts, tf_err=tf_err)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the engine's ported options at full width
+# ---------------------------------------------------------------------------
+
+def counts(kernel):
+    return dict(fp=kernel.launches, int8=kernel.int8_launches,
+                readonly=kernel.readonly_launches, copy=kernel.copy_launches)
+
+
+def zero_counts(kernel):
+    kernel.launches = kernel.int8_launches = 0
+    kernel.readonly_launches = kernel.copy_launches = 0
+
+
+def varied(label, streams):
+    """Raise if the streams cannot tell a wrong attention: together they
+    must hold more than three distinct tokens (one repeated token per
+    stream is what the token embedding alone gives)."""
+    distinct = len({t for s in streams for t in s})
+    log(f"[full] {label}: distinct tokens per stream "
+        f"{[len(set(s)) for s in streams]}, {distinct} in all")
+    if distinct <= 3:
+        raise AssertionError(f"{label}: the streams barely vary; they "
+                             f"cannot tell a wrong attention")
+
+
+def serve(eng, waves):
+    """Serve ``waves`` of (prompt, gen) lists one after the other; returns
+    the streams in submission order."""
+    out = []
+    for wave in waves:
+        ids = [eng.submit(p, g) for p, g in wave]
+        res = eng.run_to_completion()
+        out += [res[i] for i in ids]
+    return out
+
+
+def readonly_over_engine(torch, dev, eng, label, worst):
+    """The read-only walk (the public op ``paged_attn.paged_attention``)
+    over the pools a full-width engine filled, while its requests decode:
+    each request's table, one random query per request at its last
+    written position, layers 0 and L-1, against the plain version; the
+    pools must not change.  Returns the op's launches."""
+    import numpy as np
+    from repro_torch.kernels.paged_attention import kernel, ref
+    from repro_torch.serving import paged_attn
+    cfg, cache = eng.cfg, eng.cache
+    slots = [s for s, r in enumerate(eng.slot_req) if r is not None]
+    tables = torch.from_numpy(np.stack(
+        [eng.tables[s].as_row() for s in slots])).to(dev)
+    pos = torch.tensor([[int(eng.slot_filled[s]) - 1] for s in slots],
+                       dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(500)
+    q = torch.randn((len(slots), 1, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).to(getattr(torch, cfg.dtype))
+    live = int(pos.max()) // eng.block_size + 1
+    quant = "k_scale" in cache
+    tol = TOL[cfg.dtype]
+    n0 = kernel.readonly_launches
+    for layer in (0, cfg.n_layers - 1):
+        kw = (dict(k_scale=cache["k_scale"][layer],
+                   v_scale=cache["v_scale"][layer]) if quant else {})
+        before = [cache[n][layer].clone() for n in cache]
+        args = (q, cache["k"][layer], cache["v"][layer], tables, pos)
+        got = paged_attn.paged_attention(*args, window=FULL, softcap=0.0,
+                                         max_live_blocks=live, **kw)
+        want = ref.paged_attention(*args, window=FULL, softcap=0.0,
+                                   max_live_blocks=live, **kw).float()
+        dropped = ref.paged_attention(*args, window=FULL, softcap=0.0,
+                                      max_live_blocks=live - 1, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        unchanged = all(torch.equal(cache[n][layer], b)
+                        for n, b in zip(cache, before))
+        judge(f"read-only over the full-width {label} pools, layer {layer}, "
+              f"{len(slots)} requests at positions {pos[:, 0].tolist()}",
+              err, tol, {"last page dropped":
+                         (dropped.float() - want).abs().max().item()},
+              f", pools unchanged {unchanged}")
+        if not unchanged:
+            raise AssertionError("the read-only walk wrote the engine's pools")
+        worst["readonly"] = max(worst["readonly"], err)
+    return kernel.readonly_launches - n0
+
+
+def phase_full_width_options(torch, dev, full, worst):
+    """gemma-2b at full width through the engine's ported options:
+    int8 pages, the prefix cache (copy-on-write), the two-dispatch tick,
+    and the read-only walk over the filled pools.  Returns the main-path
+    launches of the int8 update, the read-only walk and copy_page."""
+    import numpy as np
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serving import PagedServingEngine
+    cfg, params = full["cfg"], full["params"]
+    prompts = full["prompts"]                   # phase 5's
+    (B, P), G, BS = prompts.shape, 16, 16
+    rng = np.random.default_rng(2)
+    kw = dict(max_slots=B, block_size=BS,
+              max_blocks_per_seq=-(-(P + G) // BS), device=dev)
+    out = {}
+
+    def drive(eng, label):
+        """Submit the batch, run until every request decodes, hold the
+        read-only walk against plain over the pools, then finish."""
+        ids = [eng.submit(row, G) for row in prompts]
+        for _ in range(64):
+            if all(p == "decode" for p in eng.slot_phase):
+                break
+            eng.step()
+        for _ in range(3):
+            eng.step()
+        n_ro = readonly_over_engine(torch, dev, eng, label, worst)
+        res = eng.run_to_completion()
+        return [res[i] for i in ids], n_ro
+
+    # -- int8 pages ------------------------------------------------------
+    eng = PagedServingEngine(cfg, params, kv_dtype="int8", **kw)
+    torch.cuda.synchronize()
+    zero_counts(kernel)
+    t0 = time.perf_counter()
+    streams8, n_ro8 = drive(eng, "int8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts(kernel)
+    per_pass = cfg.n_layers * eng.dispatches
+    log(f"[full] int8 pages: {B} requests x {G} tokens in {eng.dispatches} "
+        f"ticks, {wall:.3f} s (read-only checks included); launches "
+        f"{c} (int8 update: n_layers {cfg.n_layers} x dispatches "
+        f"{eng.dispatches} = {per_pass}); page bytes "
+        f"{eng.alloc.utilization()['page_bytes_per_shard']} against fp "
+        f"{eng.alloc.utilization()['fp_page_bytes_per_shard']}")
+    if not (c["int8"] == per_pass > 0 and c["fp"] == 0):
+        raise AssertionError("int8 pages: the engine did not run the int8 "
+                             "update once per layer per tick")
+    if [len(s) for s in streams8] != [G] * B:
+        raise AssertionError("int8 pages: a request did not finish")
+    varied("int8 pages", streams8)
+    out["int8"] = c["int8"]
+    out["readonly"] = n_ro8
+    # -- the unified tick (fp pages) and the two-dispatch tick -----------
+    streams = {}
+    for unified in (True, False):
+        eng = PagedServingEngine(cfg, params, unified=unified, **kw)
+        torch.cuda.synchronize()
+        zero_counts(kernel)
+        streams[unified], n_ro = drive(eng, "fp" if unified else
+                                       "fp (two-dispatch tick)")
+        c = counts(kernel)
+        log(f"[full] {'unified' if unified else 'two-dispatch'} tick: "
+            f"{eng.dispatches} passes, launches {c}")
+        varied(f"{'unified' if unified else 'two-dispatch'} tick",
+               streams[unified])
+        if c["fp"] != cfg.n_layers * eng.dispatches:
+            raise AssertionError("a tick did not run the fp update once per "
+                                 "layer per pass")
+        out["readonly"] += n_ro
+    same = [a == b for a, b in zip(streams[True], streams[False])]
+    log(f"[full] two-dispatch tick streams equal the unified tick's: "
+        f"{same}")
+    if not all(same):
+        raise AssertionError("the two-dispatch tick's streams differ from "
+                             "the unified tick's")
+    # -- the prefix cache: a 48-token system prompt, distinct 112-token
+    # suffixes, and one prompt repeated in full (its last token is
+    # recomputed into a copy-on-write page).  With short suffixes every
+    # stream of this random model repeats one token (16: one token in
+    # all; 48: two), the shared keys outweighing the rest ----------------
+    sysp = rng.integers(0, cfg.vocab, 3 * BS, dtype=np.int32)
+    shared = [np.concatenate([sysp, rng.integers(0, cfg.vocab, 7 * BS,
+                                                 dtype=np.int32)])
+              for _ in range(3)]
+    waves = [[(p, 8)] for p in shared] + [[(shared[0].copy(), 8)]]
+    # Both runs must compute every token in the same shapes, or cuBLAS and
+    # the reductions round it another way and a near-tie may flip: one
+    # slot, so each request runs alone, and chunks of 3 tokens, so chunk
+    # bounds fall on 48 (where a hit's prefill starts) and the cache-off
+    # run computes the repeated prompt's last token (159) alone, as the
+    # cache-on run recomputes it into the copied page.  A pool that keeps
+    # every cached page.
+    pkw = dict(kw, max_slots=1, max_blocks_per_seq=-(-(10 * BS + 8) // BS),
+               num_blocks=48, prefill_chunk=3)
+    runs = {}
+    for pc in (False, True):
+        eng = PagedServingEngine(cfg, params, prefix_cache=pc, **pkw)
+        torch.cuda.synchronize()
+        zero_counts(kernel)
+        runs[pc] = (serve(eng, waves), counts(kernel),
+                    eng.metrics()["prefix_cache"])
+    (off, _, _), (on, c, m) = runs[False], runs[True]
+    log(f"[full] prefix cache: hits {m['hit_tokens']} of "
+        f"{m['lookup_tokens']} prompt tokens, page hits {m['page_hits']}, "
+        f"copy-on-write copies {m['cow_copies']}, launches {c}; streams "
+        f"byte-equal to the cache off: {[a == b for a, b in zip(on, off)]}")
+    if on != off:
+        raise AssertionError("prefix cache: streams differ from the cache "
+                             "off")
+    varied("prefix cache", on)
+    if not (m["hit_tokens"] > 0 and m["cow_copies"] > 0 and c["copy"] > 0):
+        raise AssertionError("prefix cache: no hit, or no copy-on-write "
+                             "through copy_page")
+    out["copy"] = c["copy"]
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
-def device_ms(torch, fn, reps=50, warmup=5):
+def device_ms(torch, fn, reps=50, warmup=5, part=None):
     """Device milliseconds per call: the summed device time of every
     kernel and copy ``fn`` puts on the card (``torch.profiler``), over
-    ``reps`` calls.  The host's time to issue them is not in it."""
+    ``reps`` calls.  The host's time to issue them is not in it.  With
+    ``part`` (a substring of a kernel's name), also the share of those
+    kernels: (total, part)."""
     for _ in range(warmup):
         fn()
-    return sum(r[0] for r in profiled(torch, fn, reps)) / reps / 1e3
+    rows = profiled(torch, fn, reps)
+    total = sum(r[0] for r in rows) / reps / 1e3
+    if part is None:
+        return total
+    return total, sum(r[0] for r in rows if part in r[2]) / reps / 1e3
 
 
-def bound(torch, c):
+def bound(torch, c, *, fresh=True, row_bytes=None):
     """Least time for the call's work on an H100 SXM: each byte the
     function needs read once and each output byte written once, or the
     operations the live query rows need (4*D per key: QK and PV) at the
     input type's peak, whichever is larger.  Bytes: the cached K/V rows
-    the queries reach (those before a request's first fresh position,
-    within the window), q in and out, the live fresh rows in and into the
-    pools, the tables and positions; padded rows move no K/V."""
+    the queries reach (with ``fresh``, those before a request's first
+    fresh position; read-only, every row up to its last position; within
+    the window), q in and out, the live fresh rows in and into the pools,
+    the tables and positions; padded rows move no K/V.  ``row_bytes``:
+    bytes of one pool row of one kv head (D * itemsize for fp pools,
+    D + 4 for int8 rows and their fp32 scale)."""
     B, S, H, D = c["q"].shape
-    Hkv = c["kn"].shape[2]
+    Hkv = c["kp"].shape[2]
     item = c["q"].element_size()
+    row_bytes = D * item if row_bytes is None else row_bytes
     pos = c["pos"].long()
     live = pos >= 0
-    n_fresh = int(live.sum())
+    n_fresh = int(live.sum()) if fresh else 0
     first = torch.where(live, pos, FULL).min(dim=1).values
     first = torch.where(live.any(dim=1), first, 0)
-    cached = first - (first - c["window"] + 1).clamp(min=0)
-    nbytes = (2 * int(cached.sum()) * Hkv * D * item     # cached K, V read
+    end = first if fresh else (pos.max(dim=1).values + 1).clamp(min=0)
+    cached = (end - (first - c["window"] + 1).clamp(min=0)).clamp(min=0)
+    nbytes = (2 * int(cached.sum()) * Hkv * row_bytes   # cached K, V read
               + 2 * B * S * H * D * item                 # q in, out
-              + 2 * 2 * n_fresh * Hkv * D * item         # fresh rows in+out
+              + 2 * n_fresh * Hkv * (D * item + row_bytes)   # fresh in, out
               + 4 * (c["tables"].numel() + c["pos"].numel()))
     keys = (pos + 1).clamp(min=0, max=c["window"])       # keys per query row
     ops = 4 * D * H * int(keys.sum())
@@ -533,6 +975,114 @@ def phase_timing(torch, dev):
         log(f"[time] {label} {tuple(c['q'].shape)} bf16, device time per "
             f"call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
+def library_sdpa(torch, c, kp, vp, ks=None, vs=None):
+    """The library yardstick of a walk: one ``scaled_dot_product_attention``
+    call over the request's pages, gathered (and dequantized to q's dtype
+    for int8 pools) beforehand, outside the timed call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ref
+    B, S, H, D = c["q"].shape
+    BS = kp.shape[1]
+    L = c["live"] * BS
+    tab = c["tables"][:, :c["live"]].long()
+    if ks is not None:
+        k, v = ref.dequantize(kp[tab], ks[tab]), ref.dequantize(vp[tab],
+                                                                vs[tab])
+    else:
+        k, v = kp[tab], vp[tab]
+    k = k.to(c["q"].dtype).reshape(B, L, 1, D)
+    v = v.to(c["q"].dtype).reshape(B, L, 1, D)
+    mask = (torch.arange(L, device=k.device)[None, None, :]
+            <= c["pos"].long()[:, :, None])[:, None]         # (B, 1, S, L)
+    qt = c["q"].transpose(1, 2)
+    kt = k.transpose(1, 2).expand(B, H, L, D)                 # MQA: one head
+    vt = v.transpose(1, 2).expand(B, H, L, D)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+
+
+def phase_family_timing(torch, dev):
+    """Device time per call (``torch.profiler``) of the int8 update, the
+    read-only walk and copy_page at their full-width paths' shapes, beside
+    the bound, the plain version and a library call."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+    gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=torch.bfloat16)
+    shapes = {"decode": dict(B=4, S=1, starts=[48, 52, 60, 63],
+                             ns=[1, 1, 1, 1], **gemma),
+              "prefill": dict(B=4, S=16, starts=[16, 0, 32, 48],
+                              ns=[16, 16, 16, 16], **gemma)}
+    out = {}
+    for label, shape in shapes.items():
+        c = quantized(torch, make_case(torch, dev, 7, **shape))
+        kq, vq, ks, vs = (c[n].clone() for n in ("kq", "vq", "ks", "vs"))
+
+        def run(fn):
+            return lambda: fn(c["q"], c["kn"], c["vn"], kq, vq, c["tables"],
+                              c["pos"], window=FULL, softcap=0.0,
+                              max_live_blocks=c["live"], k_scale=ks,
+                              v_scale=vs)
+
+        D = shape["D"]
+        ms, walk_ms = device_ms(torch, run(kernel.paged_attention_update),
+                                part="paged_kernel")
+        row = dict(ms=ms, kernel_only_ms=walk_ms,
+                   plain_ms=device_ms(torch,
+                                      run(ref.unified_attention_update)),
+                   library_ms=device_ms(torch, library_sdpa(
+                       torch, c, kq, vq, ks, vs)))
+        row["bound_ms"], row["bound_by"] = bound(torch, c, row_bytes=D + 4)
+        out[f"int8 {label}"] = row
+        log(f"[time] int8 update {label} {tuple(c['q'].shape)} bf16 q, int8 "
+            f"pools, device time per call: kernel {row['ms']:.4f} ms (the "
+            f"CUDA walk {walk_ms:.4f} ms, the wrapper's quantize the rest), "
+            f"plain {row['plain_ms']:.4f} ms, "
+            f"sdpa on dequantized pages {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    c = quantized(torch, make_case(torch, dev, 8, **shapes["decode"]))
+    for quant in (False, True):
+        kw = dict(k_scale=c["ks"], v_scale=c["vs"]) if quant else {}
+        kp, vp = (c["kq"], c["vq"]) if quant else (c["kp"], c["vp"])
+
+        def run(fn):
+            return lambda: fn(c["q"], kp, vp, c["tables"], c["pos"],
+                              window=FULL, softcap=0.0,
+                              max_live_blocks=c["live"], **kw)
+
+        row = dict(ms=device_ms(torch, run(kernel.paged_attention)),
+                   plain_ms=device_ms(torch, run(ref.paged_attention)),
+                   library_ms=device_ms(torch, library_sdpa(
+                       torch, c, kp, vp, *kw.values())))
+        row["bound_ms"], row["bound_by"] = bound(
+            torch, c, fresh=False,
+            row_bytes=shapes["decode"]["D"] + 4 if quant else None)
+        label = "int8" if quant else "fp"
+        out[f"read-only {label}"] = row
+        log(f"[time] read-only walk, {label} pools, decode "
+            f"{tuple(c['q'].shape)} bf16 q, device time per call: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
+    # copy_page on gemma-2b's K pool at batch 4 (18 layers, 17 pages)
+    g = torch.Generator(device=dev).manual_seed(9)
+    pool = torch.randn((18, 17, 16, 1, 256), generator=g,
+                       device=dev).to(torch.bfloat16)
+    ids = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    dst = torch.tensor([7], device=dev)
+    page_bytes = pool[0, 0].numel() * pool.element_size()
+    row = dict(ms=device_ms(torch, lambda: kernel.copy_page(pool, ids)),
+               plain_ms=device_ms(torch, lambda: ref.copy_page(pool, 3, 7)),
+               library_ms=device_ms(torch, lambda: pool.index_copy_(
+                   1, dst, pool[:, 3:4])),
+               bound_ms=2 * 18 * page_bytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    out["copy_page"] = row
+    log(f"[time] copy_page bf16 pool (18, 17, 16, 1, 256), device time per "
+        f"call: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"index_copy_ {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms (bytes)")
     return out
 
 
@@ -855,9 +1405,14 @@ def main():
     gpu = phase_gpu_info()
     phase_build()
     max_err = phase_kernel_vs_plain(torch, dev)
+    family_err = phase_family_vs_plain(torch, dev)
     phase_reduced_exact(torch, dev)
-    launches, tok_s = phase_full_width(torch, dev)
+    full = phase_full_width(torch, dev)
+    family_launches = phase_full_width_options(torch, dev, full, family_err)
+    fp_launches = full["launches"]
+    del full                            # the full-width weights
     timing = phase_timing(torch, dev)
+    family_timing = phase_family_timing(torch, dev)
     from repro_torch.core.catopt import make_problem
     problem = make_problem(seed=0, n_events=PAPER["E"], n_dims=PAPER["m"],
                            device=dev)
@@ -865,13 +1420,24 @@ def main():
     fit_launches, _ = phase_catopt(torch, dev, problem)
     fit = phase_fitness_timing(torch, dev, problem)["paper"]
     dec = timing["decode"]
-    report = {"kernels": [{
-        "name": "paged_attention_update", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": max_err,
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"]}, {
+
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, **t}
+
+    report = {"kernels": [
+        entry("paged_attention_update", KERNEL_SOURCE, KERNEL_REPLACES,
+              fp_launches, max_err, dec),
+        entry("paged_attention_update_int8", KERNEL_SOURCE, INT8_REPLACES,
+              family_launches["int8"], family_err["int8"],
+              family_timing["int8 decode"]),
+        entry("paged_attention", KERNEL_SOURCE, READONLY_REPLACES,
+              family_launches["readonly"], family_err["readonly"],
+              family_timing["read-only fp"]),
+        entry("copy_page", COPY_SOURCE, COPY_REPLACES,
+              family_launches["copy"], family_err["copy"],
+              family_timing["copy_page"]), {
         "name": "fitness_sq", "route": "cuda",
         "source": FIT_SOURCE, "replaces": FIT_REPLACES,
         "launches": fit_launches, "max_abs_err": fit_abs,

@@ -324,11 +324,14 @@ class Platform:
         [token, ...]}, "metrics": engine.metrics()}``; the tokens also
         land in the run's outdir for ``get_results``.
 
+        prefix_cache: automatic prefix caching with copy-on-write pages;
+        kv_dtype: ``"fp"`` or ``"int8"`` KV pages (see the engine).
+
         Not ported yet, each raising ``NotImplementedError`` with its
-        ROADMAP item: ``open_loop``, ``replicas > 1``, ``prefix_cache``,
-        ``speculate`` (and so ``draft_k``), ``kv_dtype="int8"``,
-        ``preempt="swap"``, ``host_cache_pages`` and a cluster with
-        ``tp_size > 1`` (``routing`` only matters with replicas).
+        ROADMAP item: ``open_loop``, ``replicas > 1``, ``speculate`` (and
+        so ``draft_k``), ``preempt="swap"``, ``host_cache_pages`` and a
+        cluster with ``tp_size > 1`` (``routing`` only matters with
+        replicas).
         """
         cluster = self._cluster(name)
         if cluster.tp_size != cluster.size:
@@ -342,11 +345,7 @@ class Platform:
         for lacking, option, item in (
                 (open_loop is not None, "open_loop", "Queue 1 item 9"),
                 (replicas > 1, "replicas > 1", "Queue 1 item 9"),
-                (prefix_cache, "prefix_cache=True",
-                 "Queue 1 item 6 and Queue 2 item 3"),
                 (speculate, "speculate=True", "Queue 1 item 6"),
-                (kv_dtype == "int8", "kv_dtype='int8'",
-                 "Queue 2 item 1, int8 variant"),
                 (preempt == "swap", "preempt='swap'", "Queue 1 item 6"),
                 (host_cache_pages > 0, "host_cache_pages",
                  "Queue 1 item 6"),
@@ -362,6 +361,7 @@ class Platform:
             from repro_torch.serving import PagedServingEngine
 
             eng = PagedServingEngine(cfg, params, token_budget=token_budget,
+                                     prefix_cache=prefix_cache,
                                      kv_dtype=kv_dtype, preempt=preempt,
                                      device=ctx.cluster.master,
                                      **engine_kwargs)

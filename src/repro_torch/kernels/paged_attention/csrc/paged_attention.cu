@@ -1,12 +1,18 @@
-// Paged-KV attention with the step's K/V scatter fused in: the Hopper port of
-// repro/kernels/paged_attention/kernel.py::paged_attention_update_pallas
-// (_call(fuse=True) -> _paged_kernel).
+// Paged-KV attention over a block table, with the step's K/V scatter fused
+// in: the Hopper port of the paged-attention family in
+// repro/kernels/paged_attention/kernel.py --
+//   paged_attention_update_pallas (_call(fuse=True)), fp and int8 pools;
+//   paged_attention_pallas (_call(fuse=False)), the read-only walk, fp and
+//   int8 pools.
+// One kernel, two compile-time switches: kFuse (scatter this step's fresh
+// rows first) and kQuant (int8 pools with fp32 per-row scales).
 //
-// What it computes, per request b and kv head h: write this step's fresh K/V
-// rows into pool[tables[b, pos // BS], pos % BS, h] (rows with pos -1 are not
-// written), then attend the S*G query rows of (b, h) -- GQA folded into rows
-// r = s*G + g, no K/V repeat -- over the request's logical blocks with online
-// softmax (m, l, acc in fp32), causal, sliding-window and softcap masks.
+// What it computes, per request b and kv head h: with kFuse, write this
+// step's fresh K/V rows into pool[tables[b, pos // BS], pos % BS, h] (rows
+// with pos -1 are not written), then attend the S*G query rows of (b, h) --
+// GQA folded into rows r = s*G + g, no K/V repeat -- over the request's
+// logical blocks with online softmax (m, l, acc in fp32), causal,
+// sliding-window and softcap masks.
 //
 // Design for a CUDA grid (the TPU kernel carries m/l/acc across a sequential
 // grid axis; here nothing carries between blocks):
@@ -28,23 +34,33 @@
 //     1e-30; blocks past max(maxp, 0) // BS or wholly before
 //     minp - window + 1 are skipped (in 64-bit: minp is 2^30 for a request
 //     with no live row and window may be 2^30).
-//   * Types: pools, q, k_new, v_new and out share one dtype (fp32 or bf16).
-//     Scores, softmax and acc are fp32; like the TPU kernel (kernel.py:139)
-//     p is rounded to the pool dtype before the PV product.
+//   * Types: q and out share the model dtype T (fp32 or bf16).  fp pools are
+//     T as well; like the TPU kernel (kernel.py:139) p is rounded to T before
+//     the PV product.  int8 pools (kQuant): the wrapper quantizes the fresh
+//     rows with the plain version's quantize_rows (as the JAX wrapper does,
+//     kernel.py:199-208), so the kernel scatters int8 rows and their fp32
+//     scales and the pools are bit-equal to the plain scatter by
+//     construction; the walk dequantizes each page row in fp32 (int8 * its
+//     scale) before QK and before PV, and p stays fp32 (the TPU kernel's
+//     p.astype(v.dtype) with v dequantized to fp32).
 //
 // Bound on an H100: bytes.  A decode step reads each live K/V page once
-// (2 * live_tokens * D * itemsize per (b, h)) and does 4 * D flops per key
-// per query row, far below the ~295 flop/byte ridge.  This version is simple
-// and right, not fast.  What it does about the bytes: every global access is
-// a 16-byte vector, and each thread issues its share of a page's K and V
-// loads (up to 4 + 4 vectors) before storing any, so one page costs about
-// one memory latency, not one per element.  What it does not do yet: fp32
-// dots are scalar from shared memory, pages are not prefetched while the
-// previous one computes, and one block per (b, h, tile) means gemma-2b
+// (2 * live_tokens * D * itemsize per (b, h), plus 8 bytes of scales per
+// row with int8 pools) and does 4 * D flops per key per query row, far below
+// the ~295 flop/byte ridge.  This version is simple and right, not fast.
+// What it does about the bytes: every K/V access is a 16-byte vector (8
+// bf16, 4 fp32 or 16 int8 values), and each thread issues its share of a
+// page's K and V loads (up to 4 + 4 vectors) before storing any, so one
+// page costs about one memory latency, not one per element; int8 pools
+// halve (bf16) or quarter (fp32) the page bytes.  What it does not do yet:
+// fp32 dots are scalar from shared memory, pages are not prefetched while
+// the previous one computes, and one block per (b, h, tile) means gemma-2b
 // decode (MQA, S*G = 8 rows) fills only B blocks of 132 SMs.  Split-K over
-// pages, wgmma and TMA are later work.
+// pages (which the read-only walk could take with no scatter race), wgmma
+// and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -95,24 +111,48 @@ __device__ __forceinline__ void unpack(float* dst, uint4 v, float scale,
   }
 }
 
+// Sixteen int8 values times their row's scale, in fp32 (the dequantize of
+// the plain version: fp32(q) * scale, one rounding).
+__device__ __forceinline__ void unpack(float* dst, uint4 v, float scale,
+                                       const int8_t*) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]) * scale;
+}
+
+// The pools' element type: T, or int8 with kQuant.
+template <typename T, bool kQuant> struct Pool { using type = T; };
+template <typename T> struct Pool<T, true> { using type = int8_t; };
+
 size_t smem_bytes(int D, int BS) {
   const int DP = D + 1;
   return sizeof(float) *
          (size_t)(kRows * DP + 2 * BS * DP + kRows * BS + 4 * kRows);
 }
 
-template <typename T, int D>
+// k_new/v_new are P (int8 rows with kQuant), ks_new/vs_new their fp32
+// scales (B, S, Hkv) and ks_pool/vs_pool the scale pools (NB, BS, Hkv), read
+// only with kQuant; k_new, v_new, ks_new and vs_new only with kFuse.
+template <typename T, int D, bool kQuant, bool kFuse>
 __global__ void __launch_bounds__(kThreads)
-paged_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                    const T* __restrict__ v_new, T* k_pool, T* v_pool,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ positions, T* __restrict__ out,
-                    int S, int H, int Hkv, int BS, int MB, int nb_live,
-                    int window, float scale, float softcap) {
+paged_kernel(const T* __restrict__ q,
+             const typename Pool<T, kQuant>::type* __restrict__ k_new,
+             const typename Pool<T, kQuant>::type* __restrict__ v_new,
+             const float* __restrict__ ks_new,
+             const float* __restrict__ vs_new,
+             typename Pool<T, kQuant>::type* k_pool,
+             typename Pool<T, kQuant>::type* v_pool, float* ks_pool,
+             float* vs_pool, const int* __restrict__ tables,
+             const int* __restrict__ positions, T* __restrict__ out, int S,
+             int H, int Hkv, int BS, int MB, int nb_live, int window,
+             float scale, float softcap) {
+  using P = typename Pool<T, kQuant>::type;
   constexpr int DP = D + 1;          // padded row stride: conflict-free QK^T
   constexpr int kAcc = kRows * D / kThreads;
-  constexpr int VN = Vec<T>::N;      // elements per 16-byte vector
-  constexpr int DV = D / VN;         // vectors per head row
+  constexpr int QN = Vec<T>::N;      // q elements per 16-byte vector
+  constexpr int QV = D / QN;         // q vectors per head row
+  constexpr int VN = Vec<P>::N;      // pool elements per 16-byte vector
+  constexpr int DV = D / VN;         // pool vectors per head row
   constexpr int kBatch = 4;          // vectors in flight per thread
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -137,16 +177,27 @@ paged_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const size_t row_stride = (size_t)Hkv * D;
   const size_t page_stride = (size_t)BS * row_stride;
 
-  // 1. Scatter every fresh row of (b, h) -- all S of them, in every tile.
-  for (int idx = tid; idx < S * DV; idx += kThreads) {
-    const int s = idx / DV, d = (idx % DV) * VN;
-    const int p = pos_b[s];
-    if (p >= 0) {
-      const size_t dst = (size_t)tab_b[p / BS] * page_stride +
-                         (size_t)(p % BS) * row_stride + (size_t)h * D + d;
-      const size_t src = (((size_t)b * S + s) * Hkv + h) * D + d;
-      st16(k_pool + dst, ld16(k_new + src));
-      st16(v_pool + dst, ld16(v_new + src));
+  // 1. Scatter every fresh row of (b, h) -- all S of them, in every tile
+  // -- and, with int8 pools, each row's two scales.
+  if constexpr (kFuse) {
+    for (int idx = tid; idx < S * DV; idx += kThreads) {
+      const int s = idx / DV, d = (idx % DV) * VN;
+      const int p = pos_b[s];
+      if (p >= 0) {
+        const size_t dst = (size_t)tab_b[p / BS] * page_stride +
+                           (size_t)(p % BS) * row_stride + (size_t)h * D + d;
+        const size_t src = (((size_t)b * S + s) * Hkv + h) * D + d;
+        st16(k_pool + dst, ld16(k_new + src));
+        st16(v_pool + dst, ld16(v_new + src));
+        if constexpr (kQuant) {
+          if (d == 0) {
+            const size_t slot = (size_t)tab_b[p / BS] * BS + p % BS;
+            const size_t from = ((size_t)b * S + s) * Hkv + h;
+            ks_pool[slot * Hkv + h] = ks_new[from];
+            vs_pool[slot * Hkv + h] = vs_new[from];
+          }
+        }
+      }
     }
   }
   // 2. Request bounds over all S rows, and this tile's scaled queries.
@@ -160,8 +211,8 @@ paged_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     maxp_s = mx;
     minp_s = mn;
   }
-  for (int idx = tid; idx < kRows * DV; idx += kThreads) {
-    const int r = idx / DV, d = (idx % DV) * VN;
+  for (int idx = tid; idx < kRows * QV; idx += kThreads) {
+    const int r = idx / QV, d = (idx % QV) * QN;
     const int row = r0 + r;
     uint4 v = make_uint4(0, 0, 0, 0);   // all-zero bits: 0.0 in fp32 and bf16
     if (row < SG) {
@@ -208,8 +259,14 @@ paged_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
         const int i = i0 + u * kThreads;
         if (i < BS * DV) {
           const int c = i / DV, d = (i % DV) * VN;
-          unpack(k_s + c * DP + d, kr[u], 1.f, k_pool);
-          unpack(v_s + c * DP + d, vr[u], 1.f, v_pool);
+          if constexpr (kQuant) {   // each row times its scale
+            const size_t sc = ((size_t)tab_b[j] * BS + c) * Hkv + h;
+            unpack(k_s + c * DP + d, kr[u], ks_pool[sc], k_pool);
+            unpack(v_s + c * DP + d, vr[u], vs_pool[sc], v_pool);
+          } else {
+            unpack(k_s + c * DP + d, kr[u], 1.f, k_pool);
+            unpack(v_s + c * DP + d, vr[u], 1.f, v_pool);
+          }
         }
       }
     }
@@ -237,7 +294,8 @@ paged_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       for (int c = 0; c < BS; ++c) {
         const float e = expf(pr[c] - m_new);
         sum += e;
-        pr[c] = to_f32(from_f32<T>(e));   // p in the pool dtype for PV
+        // p in the pool dtype for PV; fp32 against dequantized int8 pages
+        pr[c] = kQuant ? e : to_f32(from_f32<T>(e));
       }
       const float corr = expf(m_prev - m_new);
       l_s[tid] = l_s[tid] * corr + sum;
@@ -272,70 +330,92 @@ paged_update_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kQuant, bool kFuse>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   void* k_pool, void* v_pool, const void* tables,
-                   const void* positions, void* out, int B, int S, int H,
-                   int Hkv, int BS, int MB, int nb_live, int window,
-                   float scale, float softcap, cudaStream_t stream) {
+                   const void* ks_new, const void* vs_new, void* k_pool,
+                   void* v_pool, void* ks_pool, void* vs_pool,
+                   const void* tables, const void* positions, void* out,
+                   int B, int S, int H, int Hkv, int BS, int MB, int nb_live,
+                   int window, float scale, float softcap,
+                   cudaStream_t stream) {
+  using P = typename Pool<T, kQuant>::type;
   const size_t smem = smem_bytes(D, BS);
   static size_t smem_set = 48 * 1024;   // per instantiation: the default cap
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_update_kernel<T, D>,
+        paged_kernel<T, D, kQuant, kFuse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   const dim3 grid((S * (H / Hkv) + kRows - 1) / kRows, Hkv, B);
-  paged_update_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<T*>(k_pool),
-      static_cast<T*>(v_pool), static_cast<const int*>(tables),
+  paged_kernel<T, D, kQuant, kFuse><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k_new),
+      static_cast<const P*>(v_new), static_cast<const float*>(ks_new),
+      static_cast<const float*>(vs_new), static_cast<P*>(k_pool),
+      static_cast<P*>(v_pool), static_cast<float*>(ks_pool),
+      static_cast<float*>(vs_pool), static_cast<const int*>(tables),
       static_cast<const int*>(positions), static_cast<T*>(out), S, H, Hkv,
       BS, MB, nb_live, window, scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
+#define PA_ARGS                                                            \
+  q, k_new, v_new, ks_new, vs_new, k_pool, v_pool, ks_pool, vs_pool,      \
+      tables, positions, out, B, S, H, Hkv, BS, MB, nb_live, window, scale, \
+      softcap, stream
+
+template <typename T, bool kQuant, bool kFuse>
 cudaError_t launch_d(int D, const void* q, const void* k_new,
-                     const void* v_new, void* k_pool, void* v_pool,
+                     const void* v_new, const void* ks_new,
+                     const void* vs_new, void* k_pool, void* v_pool,
+                     void* ks_pool, void* vs_pool, const void* tables,
+                     const void* positions, void* out, int B, int S, int H,
+                     int Hkv, int BS, int MB, int nb_live, int window,
+                     float scale, float softcap, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<T, 16, kQuant, kFuse>(PA_ARGS);
+    case 64: return launch<T, 64, kQuant, kFuse>(PA_ARGS);
+    case 256: return launch<T, 256, kQuant, kFuse>(PA_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_t(int quant, int fuse, int D, const void* q,
+                     const void* k_new, const void* v_new,
+                     const void* ks_new, const void* vs_new, void* k_pool,
+                     void* v_pool, void* ks_pool, void* vs_pool,
                      const void* tables, const void* positions, void* out,
                      int B, int S, int H, int Hkv, int BS, int MB,
                      int nb_live, int window, float scale, float softcap,
                      cudaStream_t stream) {
-#define PA_LAUNCH(DIM)                                                      \
-  return launch<T, DIM>(q, k_new, v_new, k_pool, v_pool, tables, positions, \
-                        out, B, S, H, Hkv, BS, MB, nb_live, window, scale,  \
-                        softcap, stream)
-  switch (D) {
-    case 16: PA_LAUNCH(16);
-    case 64: PA_LAUNCH(64);
-    case 256: PA_LAUNCH(256);
-    default: return cudaErrorInvalidValue;
-  }
-#undef PA_LAUNCH
+  if (quant && fuse) return launch_d<T, true, true>(D, PA_ARGS);
+  if (quant) return launch_d<T, true, false>(D, PA_ARGS);
+  if (fuse) return launch_d<T, false, true>(D, PA_ARGS);
+  return launch_d<T, false, false>(D, PA_ARGS);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); the Python wrapper raises on anything else.
-extern "C" int paged_attention_update(
-    const void* q, const void* k_new, const void* v_new, void* k_pool,
-    void* v_pool, const void* tables, const void* positions, void* out,
+// dtype (of q and out): 0 = float32, 1 = bfloat16.  quant: the pools are
+// int8 with fp32 scale pools (else of q's dtype).  fuse: scatter k_new /
+// v_new (and with quant their scales ks_new / vs_new) before the walk; the
+// read-only walk passes null for all four.  Returns cudaGetLastError()
+// after the launch (0 on success); the Python wrapper raises on anything
+// else.
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_new, const void* v_new, const void* ks_new,
+    const void* vs_new, void* k_pool, void* v_pool, void* ks_pool,
+    void* vs_pool, const void* tables, const void* positions, void* out,
     int B, int S, int H, int Hkv, int D, int BS, int MB, int nb_live,
-    int window, float scale, float softcap, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int window, float scale, float softcap, int dtype, int quant, int fuse,
+    void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, k_new, v_new, k_pool, v_pool, tables,
-                                positions, out, B, S, H, Hkv, BS, MB,
-                                nb_live, window, scale, softcap, st);
+    return (int)launch_t<float>(quant, fuse, D, PA_ARGS);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k_new, v_new, k_pool, v_pool,
-                                        tables, positions, out, B, S, H, Hkv,
-                                        BS, MB, nb_live, window, scale,
-                                        softcap, st);
+    return (int)launch_t<__nv_bfloat16>(quant, fuse, D, PA_ARGS);
   return (int)cudaErrorInvalidValue;
 }
 

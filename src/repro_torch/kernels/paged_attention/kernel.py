@@ -1,20 +1,35 @@
-"""CUDA paged-attention kernel for Hopper: the port of
-``repro/kernels/paged_attention/kernel.py::paged_attention_update_pallas``.
+"""CUDA paged-attention kernels for Hopper: the ports of the paged-attention
+family in ``repro/kernels/paged_attention/kernel.py``:
 
-The kernel (``csrc/paged_attention.cu``, whose header note gives the
-design) scatters the step's fresh K/V rows into their pages and walks each
-request's block table with online softmax, in one launch.  This module is
-its ctypes wrapper.  The plain version is
-``ref.unified_attention_update``: the wrapper runs it for CPU tensors, and
-only for them; for CUDA tensors it launches the kernel or raises.
+  * ``paged_attention_update_pallas`` (fp and int8 pools) ->
+    :func:`paged_attention_update`: scatter the step's fresh K/V rows into
+    their pages and walk each request's block table with online softmax,
+    in one launch;
+  * ``paged_attention_pallas`` -> :func:`paged_attention`: the same walk,
+    read-only;
+  * ``copy_page_pallas`` -> :func:`copy_page`: copy one page over another
+    in every layer of a stacked pool (copy-on-write).
 
-``launches`` counts kernel launches (one per wrapper call on CUDA tensors,
-none for the plain version), so a run can show that its main path went
-through the kernel.  The caller resets and reads it.
+The walks are one kernel (``csrc/paged_attention.cu``, whose header note
+gives the design) with two compile-time switches, the scatter and the int8
+pools; the copy is ``csrc/copy_page.cu``.  This module is their ctypes
+wrappers.  The plain versions are in ``ref.py``: a wrapper runs its plain
+version for CPU tensors, and only for them; for CUDA tensors it launches
+the kernel or raises.
+
+Launch counts, one per kernel variant the main paths run (a wrapper adds
+one where it launches, none for the plain version), so a run can show that
+its path went through the kernels; the caller resets and reads them:
+
+    launches           the fused update over fp pools
+    int8_launches      the fused update over int8 pools
+    readonly_launches  the read-only walk, fp or int8 pools
+    copy_launches      copy_page
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -23,44 +38,80 @@ from repro_torch.kernels.paged_attention import ref as _ref
 
 HEAD_DIMS = (16, 64, 256)
 MAX_BLOCK_SIZE = 64          # shared memory: (16 + 2*BS) * (D + 1) fp32
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # q, out, fp pools
 
 launches = 0
+int8_launches = 0
+readonly_launches = 0
+copy_launches = 0
 
-_fn = None
+_fns: Dict[str, object] = {}
+_copy_errors: Dict[torch.device, torch.Tensor] = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def _walk_fn():
+    if "walk" not in _fns:
         lib = _build.library("paged_attention")
-        fn = lib.paged_attention_update
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+        fn = lib.paged_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.paged_attention_error_string)
-    return _fn
+        _fns["walk"] = (fn, lib.paged_attention_error_string)
+    return _fns["walk"]
 
 
-def _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions):
+def _copy_fn():
+    if "copy" not in _fns:
+        lib = _build.library("copy_page")
+        fn = lib.copy_page_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.copy_page_error_string.argtypes = [ctypes.c_int]
+        lib.copy_page_error_string.restype = ctypes.c_char_p
+        _fns["copy"] = (fn, lib.copy_page_error_string)
+    return _fns["copy"]
+
+
+def _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions, *,
+           k_scale=None, v_scale=None):
+    """What the CUDA walk takes; raises for anything else (on any device).
+    ``k_new``/``v_new`` are None for the read-only walk; with int8 pools
+    they are the fresh rows in q's dtype, before quantization."""
     B, S, H, D = q.shape
     NB, BS, Hkv, Dp = k_pool.shape
-    tensors = {"q": q, "k_new": k_new, "v_new": v_new, "k_pool": k_pool,
-               "v_pool": v_pool, "block_tables": block_tables,
-               "positions": positions}
+    quant = k_scale is not None
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+               "block_tables": block_tables, "positions": positions}
+    if k_new is not None:
+        tensors.update(k_new=k_new, v_new=v_new)
+    if quant:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+    elif v_scale is not None:
+        raise ValueError("k_scale and v_scale come together")
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in Q_DTYPES:
         raise TypeError(f"dtype {q.dtype} not supported (float32, bfloat16)")
-    for name in ("k_new", "v_new", "k_pool", "v_pool"):
-        if tensors[name].dtype != q.dtype:
+    pool_dtype = torch.int8 if quant else q.dtype
+    for name in ("k_new", "v_new"):
+        if name in tensors and tensors[name].dtype != q.dtype:
             raise TypeError(f"{name} is {tensors[name].dtype}, q {q.dtype}")
+    for name in ("k_pool", "v_pool"):
+        if tensors[name].dtype != pool_dtype:
+            raise TypeError(f"{name} is {tensors[name].dtype}, the kernel "
+                            f"takes {pool_dtype} pools here")
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            t = tensors[name]
+            if t.dtype != torch.float32 or t.shape != (NB, BS, Hkv):
+                raise TypeError(f"{name} must be float32 {(NB, BS, Hkv)}")
     for name in ("block_tables", "positions"):
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32")
@@ -69,7 +120,8 @@ def _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions):
     if Dp != D or v_pool.shape != k_pool.shape or H % Hkv:
         raise ValueError(f"pool {tuple(k_pool.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if k_new.shape != (B, S, Hkv, D) or v_new.shape != k_new.shape:
+    if k_new is not None and (k_new.shape != (B, S, Hkv, D)
+                              or v_new.shape != k_new.shape):
         raise ValueError(f"k_new/v_new must be {(B, S, Hkv, D)}")
     if positions.shape != (B, S) or block_tables.dim() != 2 \
             or block_tables.shape[0] != B:
@@ -77,48 +129,189 @@ def _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions):
     if not 1 <= BS <= MAX_BLOCK_SIZE:
         raise ValueError(f"block_size {BS} not in [1, {MAX_BLOCK_SIZE}]")
     for name in ("q", "k_new", "v_new", "k_pool", "v_pool"):
-        if tensors[name].data_ptr() % 16:
+        if name in tensors and tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              f"(the kernel moves 16-byte vectors)")
+
+
+def _launch(q, fresh, k_pool, v_pool, scales, block_tables, positions, *,
+            window, softcap, max_live_blocks):
+    """One launch of the walk.  ``fresh``: (k_new, v_new, ks_new, vs_new)
+    in the pools' types, or None for the read-only walk; ``scales``:
+    (k_scale, v_scale) with int8 pools, else None.  Returns out."""
+    B, S, H, D = q.shape
+    NB, BS, Hkv, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    kn, vn, ksn, vsn = fresh if fresh is not None else (None,) * 4
+    ks, vs = scales if scales is not None else (None, None)
+    fn, errstr = _walk_fn()
+    err = fn(q.data_ptr(), ptr(kn), ptr(vn), ptr(ksn), ptr(vsn),
+             k_pool.data_ptr(), v_pool.data_ptr(), ptr(ks), ptr(vs),
+             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+             B, S, H, Hkv, D, BS, MB, max(1, min(int(max_live_blocks), MB)),
+             int(window), D ** -0.5, float(softcap), Q_DTYPES[q.dtype],
+             int(scales is not None), int(fresh is not None),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged attention launch failed: "
+                           f"{errstr(err).decode()} ({err})")
+    return out
 
 
 def paged_attention_update(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            positions: torch.Tensor, *, window: int,
-                           softcap: float, max_live_blocks: int):
+                           softcap: float, max_live_blocks: int,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None):
     """Scatter this step's fresh K/V rows, then attend over the pages.
 
-    q (B, S, H, D); k_new/v_new (B, S, Hkv, D); pools (NB, BS, Hkv, D),
-    all one dtype (fp32 or bf16), D in ``HEAD_DIMS``; block_tables
-    (B, MB) and positions (B, S) int32, -1 marking padded rows.  The walk
-    covers at most ``max_live_blocks`` logical blocks per request.  Returns
-    (out (B, S, H, D), k_pool, v_pool); the pools are updated in place.
-    Never synchronises with the host.
+    q (B, S, H, D) and k_new/v_new (B, S, Hkv, D) in one dtype (fp32 or
+    bf16), D in ``HEAD_DIMS``; pools (NB, BS, Hkv, D) of that dtype, or
+    int8 with ``k_scale``/``v_scale`` (NB, BS, Hkv) fp32 scale pools;
+    block_tables (B, MB) and positions (B, S) int32, -1 marking padded
+    rows.  The walk covers at most ``max_live_blocks`` logical blocks per
+    request.  With int8 pools the fresh rows are quantized here by
+    ``ref.quantize_rows`` and the kernel scatters the int8 rows and their
+    scales.  Returns (out (B, S, H, D), k_pool, v_pool), plus (k_scale,
+    v_scale) with int8 pools; the pools are updated in place.  Never
+    synchronises with the host.
     """
-    global launches
+    global launches, int8_launches
     if q.device.type == "cpu":
         return _ref.unified_attention_update(
             q, k_new, v_new, k_pool, v_pool, block_tables, positions,
-            window=window, softcap=softcap, max_live_blocks=max_live_blocks)
+            window=window, softcap=softcap, max_live_blocks=max_live_blocks,
+            k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions)
-    B, S, H, D = q.shape
-    NB, BS, Hkv, _ = k_pool.shape
-    MB = block_tables.shape[1]
-    out = torch.empty_like(q)
-    if B == 0 or S == 0:
+    _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions,
+           k_scale=k_scale, v_scale=v_scale)
+    if k_scale is None:
+        fresh, scales = (k_new, v_new, None, None), None
+    else:
+        kq, ks = _ref.quantize_rows(k_new)
+        vq, vs = _ref.quantize_rows(v_new)
+        fresh, scales = (kq, vq, ks, vs), (k_scale, v_scale)
+    out = _launch(q, fresh, k_pool, v_pool, scales, block_tables, positions,
+                  window=window, softcap=softcap,
+                  max_live_blocks=max_live_blocks)
+    if q.numel():
+        if k_scale is None:
+            launches += 1
+        else:
+            int8_launches += 1
+    if k_scale is None:
         return out, k_pool, v_pool
-    fn, errstr = _kernel_fn()
-    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-             positions.data_ptr(), out.data_ptr(), B, S, H, Hkv, D, BS, MB,
-             max(1, min(int(max_live_blocks), MB)), int(window),
-             D ** -0.5, float(softcap), _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    return out, k_pool, v_pool, k_scale, v_scale
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    positions: torch.Tensor, *, window: int, softcap: float,
+                    max_live_blocks: int,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The read-only walk: attention over the pages as they are, no
+    scatter.  Shapes and types as :func:`paged_attention_update` without
+    k_new/v_new.  Returns out (B, S, H, D); the pools are not written."""
+    global readonly_launches
+    if q.device.type == "cpu":
+        return _ref.paged_attention(q, k_pool, v_pool, block_tables,
+                                    positions, window=window,
+                                    softcap=softcap,
+                                    max_live_blocks=max_live_blocks,
+                                    k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, None, None, k_pool, v_pool, block_tables, positions,
+           k_scale=k_scale, v_scale=v_scale)
+    scales = None if k_scale is None else (k_scale, v_scale)
+    out = _launch(q, None, k_pool, v_pool, scales, block_tables, positions,
+                  window=window, softcap=softcap,
+                  max_live_blocks=max_live_blocks)
+    if q.numel():
+        readonly_launches += 1
+    return out
+
+
+def copy_page(pool: torch.Tensor, src: Union[int, torch.Tensor],
+              dst: Optional[int] = None) -> torch.Tensor:
+    """Copy page ``src`` over page ``dst`` in every layer of a contiguous
+    stacked (L, NB, ...) pool of any dtype, in place; returns the pool.
+
+    The ids are host ints (``copy_page(pool, 3, 7)``), checked here and
+    raising ValueError for ``src == dst`` or an id outside [0, NB); or one
+    int32 tensor ``{src, dst}`` on the pool's device
+    (``copy_page(pool, ids)``), read by the kernel with no host sync.  The
+    kernel checks those itself: bad ids copy nothing and set the device's
+    error flag, which :func:`copy_page_errors` reads.
+    """
+    global copy_launches
+    if dst is None:
+        ids = src
+        if not (isinstance(ids, torch.Tensor) and ids.dtype == torch.int32
+                and ids.shape == (2,)):
+            raise TypeError("ids must be an int32 tensor {src, dst}")
+    else:
+        NB = pool.shape[1] if pool.dim() >= 2 else 0
+        src, dst = int(src), int(dst)
+        if src == dst or not (0 <= src < NB and 0 <= dst < NB):
+            raise ValueError(f"copy_page: src {src}, dst {dst} must be two "
+                             f"different pages of [0, {NB})")
+        ids = None
+    if pool.device.type == "cpu":
+        if ids is not None:
+            src, dst = (int(i) for i in ids)
+            if src == dst or not (0 <= src < pool.shape[1]
+                                  and 0 <= dst < pool.shape[1]):
+                raise ValueError(f"copy_page: bad page ids {src}, {dst}")
+        return _ref.copy_page(pool, src, dst)
+    if pool.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pool.device}")
+    if pool.dim() < 3 or not pool.is_contiguous():
+        raise ValueError("pool must be a contiguous (L, NB, ...) tensor")
+    if ids is None:
+        # pinned, so the upload waits for nothing already on the stream
+        ids = torch.tensor([src, dst], dtype=torch.int32,
+                           pin_memory=True).to(pool.device, non_blocking=True)
+    elif ids.device != pool.device:
+        raise ValueError(f"ids are on {ids.device}, the pool on "
+                         f"{pool.device}")
+    L, NB = pool.shape[:2]
+    page_bytes = pool[0, 0].numel() * pool.element_size()
+    if pool.numel() == 0:
+        return pool
+    fn, errstr = _copy_fn()
+    err = fn(pool.data_ptr(), ids.contiguous().data_ptr(),
+             _copy_error_flag(pool.device).data_ptr(), L, NB, page_bytes,
+             torch.cuda.current_stream(pool.device).cuda_stream)
     if err:
-        raise RuntimeError(f"paged_attention_update launch failed: "
+        raise RuntimeError(f"copy_page launch failed: "
                            f"{errstr(err).decode()} ({err})")
-    launches += 1
-    return out, k_pool, v_pool
+    copy_launches += 1
+    return pool
+
+
+def _copy_error_flag(device: torch.device) -> torch.Tensor:
+    dev = torch.device(device.type, device.index if device.index is not None
+                       else torch.cuda.current_device())
+    if dev not in _copy_errors:
+        _copy_errors[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _copy_errors[dev]
+
+
+def copy_page_errors(device: torch.device) -> int:
+    """How many launches of :func:`copy_page` on ``device`` were given bad
+    device-side ids since the last call (counted as 0 or 1: the flag is
+    set, not added to), then clears the flag.  Synchronises with the
+    device."""
+    flag = _copy_error_flag(device)
+    n = int(flag.item())
+    flag.zero_()
+    return n

@@ -1,17 +1,24 @@
 """Op boundary for paged-KV attention: the counterpart of
-``repro/kernels/paged_attention/ops.py`` for fp pools.
+``repro/kernels/paged_attention/ops.py``.
 
 The backend follows the tensors' device and nothing else: CPU tensors run
-the plain version (``ref.py``), CUDA tensors the hand-written kernel
-(``kernel.py``), which raises for anything it does not take.  There is no
+the plain version (``ref.py``), CUDA tensors the hand-written kernels
+(``kernel.py``), which raise for anything they do not take.  There is no
 switch that sends CUDA tensors to the plain version.  Pools are updated
 in place.
 
+    paged_attention(q, k_pool, v_pool, tables, positions, ...) -> out
     paged_attention_update(q, k_new, v_new, k_pool, v_pool, tables,
                            positions, ...) -> (out, k_pool, v_pool)
     paged_attention_unified(q, k_new, v_new, k_pool, v_pool, tables,
                             positions, row_map, ...)
                            -> (out, k_pool, v_pool)   # flat ragged tick
+    copy_page(pool, src, dst) -> pool                 # COW primitive
+
+With int8 pools (``kv_dtype="int8"``) every attention op also takes
+``k_scale=``/``v_scale=`` ((NB, BS, Hkv) fp32 per-row scale pools) and
+returns them after the pools: the fresh rows are quantized by one recipe
+(``ref.quantize_rows``) on both backends and dequantized in the walk.
 """
 from __future__ import annotations
 
@@ -22,23 +29,57 @@ import torch
 from repro_torch.kernels.paged_attention import kernel as _kernel
 
 
+def _live(block_tables: torch.Tensor, max_live_blocks: Optional[int]) -> int:
+    return (block_tables.shape[1] if max_live_blocks is None
+            else max_live_blocks)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    positions: torch.Tensor, *, window: int, softcap: float,
+                    max_live_blocks: Optional[int] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Read-only paged attention.  q: (B, S, H, D) -> (B, S, H, D).
+    ``k_scale``/``v_scale`` (int8 pools) select the dequantizing walk."""
+    return _kernel.paged_attention(
+        q.contiguous(), k_pool, v_pool, block_tables, positions,
+        window=window, softcap=softcap,
+        max_live_blocks=_live(block_tables, max_live_blocks),
+        k_scale=k_scale, v_scale=v_scale)
+
+
+def copy_page(pool: torch.Tensor, src, dst=None) -> torch.Tensor:
+    """Copy one physical page across all layers of a stacked (L, NB, ...)
+    pool, in place: the engine's copy-on-write primitive.  ``src``/``dst``
+    are host ints, or ``src`` is one int32 device tensor {src, dst} and
+    ``dst`` is None (see ``kernel.copy_page``).  Any dtype, so the int8
+    pools' scale pools go through it too."""
+    return _kernel.copy_page(pool, src, dst)
+
+
 def paged_attention_update(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            positions: torch.Tensor, *, window: int,
                            softcap: float,
-                           max_live_blocks: Optional[int] = None):
+                           max_live_blocks: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None):
     """Scatter this step's fresh K/V, then attend.  q: (B, S, H, D).
 
-    Returns (out (B, S, H, D), k_pool, v_pool).  ``max_live_blocks`` bounds
-    the walk (None: the full table width).
+    Returns (out (B, S, H, D), k_pool, v_pool), plus (k_scale, v_scale)
+    with int8 pools.  ``max_live_blocks`` bounds the walk (None: the full
+    table width).  Fresh rows go in the pools' dtype, or in q's dtype to
+    be quantized when the pools are int8.
     """
-    live = (block_tables.shape[1] if max_live_blocks is None
-            else max_live_blocks)
+    fresh = q.dtype if k_scale is not None else k_pool.dtype
     return _kernel.paged_attention_update(
-        q.contiguous(), k_new.to(k_pool.dtype).contiguous(),
-        v_new.to(v_pool.dtype).contiguous(), k_pool, v_pool, block_tables,
-        positions, window=window, softcap=softcap, max_live_blocks=live)
+        q.contiguous(), k_new.to(fresh).contiguous(),
+        v_new.to(fresh).contiguous(), k_pool, v_pool, block_tables,
+        positions, window=window, softcap=softcap,
+        max_live_blocks=_live(block_tables, max_live_blocks),
+        k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_attention_unified(q: torch.Tensor, k_new: torch.Tensor,
@@ -46,7 +87,9 @@ def paged_attention_unified(q: torch.Tensor, k_new: torch.Tensor,
                             v_pool: torch.Tensor, req_tables: torch.Tensor,
                             positions: torch.Tensor, row_map: torch.Tensor, *,
                             window: int, softcap: float,
-                            max_live_blocks: Optional[int] = None):
+                            max_live_blocks: Optional[int] = None,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None):
     """Scatter + attend over a flat ragged token batch (the unified tick).
 
     Every flat row carries ONE token (q/k_new/v_new: (T, 1, ...),
@@ -57,15 +100,16 @@ def paged_attention_unified(q: torch.Tensor, k_new: torch.Tensor,
     (R, max_seg_len) multi-query view, walked once per request by
     :func:`paged_attention_update`, and the output is scattered back to
     the flat rows (dead entries all land on padded rows: garbage by
-    design).  Returns (out (T, 1, H, D), k_pool, v_pool).
+    design).  Returns (out (T, 1, H, D), k_pool, v_pool), plus the scale
+    pools with int8 pools.
     """
     T = q.shape[0]
     rm = row_map.long()
     pos_req = positions.reshape(T)[rm]
-    out_req, k_pool, v_pool = paged_attention_update(
+    res = paged_attention_update(
         q[:, 0][rm], k_new[:, 0][rm], v_new[:, 0][rm], k_pool, v_pool,
         req_tables, pos_req, window=window, softcap=softcap,
-        max_live_blocks=max_live_blocks)
+        max_live_blocks=max_live_blocks, k_scale=k_scale, v_scale=v_scale)
     out = torch.zeros_like(q)
-    out[rm, 0] = out_req
-    return out, k_pool, v_pool
+    out[rm, 0] = res[0]
+    return (out,) + tuple(res[1:])

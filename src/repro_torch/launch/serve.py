@@ -67,7 +67,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV page size")
     ap.add_argument("--token-budget", type=int, default=0,
-                    help="per-tick token cap (0 = unbounded packing)")
+                    help="per-tick token cap for the unified tick (0 = "
+                         "unbounded packing)")
+    ap.add_argument("--tick", choices=("unified", "legacy"),
+                    default="unified",
+                    help="'unified' runs prefill chunks and decodes in one "
+                         "pass (DESIGN.md §8); 'legacy' the two-dispatch "
+                         "tick")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="automatic prefix caching: ref-counted pages, "
+                         "content-hash prompt matching, copy-on-write "
+                         "(DESIGN.md §9)")
+    ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
+                    help="KV page storage: 'int8' stores pages quantized "
+                         "with per-row fp32 scales (DESIGN.md §13)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0,
@@ -87,7 +100,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     eng = PagedServingEngine(
         cfg, params, max_slots=args.batch, block_size=args.block_size,
         max_blocks_per_seq=-(-max_seq // args.block_size),
-        token_budget=args.token_budget or None, device=args.device)
+        token_budget=args.token_budget or None,
+        unified=args.tick == "unified", prefix_cache=args.prefix_cache,
+        kv_dtype=args.kv_dtype, device=args.device)
     t0 = time.time()
     for row in prompts:
         eng.submit(row, args.gen)

@@ -1,22 +1,29 @@
 """PagedServingEngine in PyTorch: continuous batching over a block-allocated
-KV cache through the unified ragged tick.  The counterpart of
-``repro/serving/engine.py::PagedServingEngine``.
+KV cache.  The counterpart of ``repro/serving/engine.py::PagedServingEngine``.
 
-This slice ports the engine's main path:
+What is ported:
 
-  * every tick is ONE ``unified_step`` pass over a flat ragged token batch
-    (DESIGN.md §8): each active request contributes one token (decoding)
-    or up to ``prefill_chunk`` tokens (prefilling), capped by
-    ``token_budget`` through ``FCFSScheduler.plan_tick``;
-  * the whole tick crosses host -> device as ONE packed int32 buffer and
-    only the (R, W) greedy argmax ids come back, as in the JAX engine;
+  * the unified tick (default): ONE ``unified_step`` pass over a flat
+    ragged token batch (DESIGN.md §8): each active request contributes one
+    token (decoding) or up to ``prefill_chunk`` tokens (prefilling),
+    capped by ``token_budget`` through ``FCFSScheduler.plan_tick``.  The
+    whole tick crosses host -> device as ONE packed int32 buffer and only
+    the (R, W) greedy argmax ids come back, as in the JAX engine;
+  * the two-dispatch tick (``unified=False``): one ``paged_step`` pass for
+    the prefill chunks, then one for the decodes;
   * FCFS admission, and recompute preemption when the page pool runs dry
     mid-decode (admission never preempts);
+  * int8 KV pools (``kv_dtype="int8"``, DESIGN.md §13);
+  * the prefix cache (``prefix_cache=True``, DESIGN.md §9): content-hashed
+    full pages, shared by incref at admission, copied on the device
+    (``ops.copy_page``) before a request writes into a shared page;
   * telemetry (``repro_torch.obs``) and the ``metrics()`` report.
 
 Options of later slices raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``prefix_cache``, ``speculate``, ``kv_dtype="int8"``,
-``preempt="swap"``, ``host_cache_pages``, ``mesh`` and ``unified=False``.
+ROADMAP.md item: ``speculate``, ``preempt="swap"``, ``host_cache_pages``
+and ``mesh``.  (Their messages keep the item numbers the ROADMAP had when
+the gates were written: "Queue 1 item 6" for the serving options, "Queue 1
+item 13" for ``mesh``.)
 
 Correctness contract (tested): a request served through this engine yields
 exactly the tokens the port's isolated greedy ``launch.serve.generate``
@@ -33,9 +40,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models.layers import compute_dtype
 from repro_torch.obs import ServingTelemetry
 from repro_torch.serving import paged_attn
-from repro_torch.serving.blocks import BlockAllocator, BlockTable
+from repro_torch.serving.blocks import BlockAllocator, BlockTable, page_digest
 from repro_torch.serving.scheduler import FCFSScheduler
 
 IDLE, PREFILL, DECODE = "idle", "prefill", "decode"
@@ -90,12 +99,28 @@ class PagedServingEngine:
             requests always fit; the rest goes to prefilling requests in
             FCFS order.  ``None`` packs every decode plus a full chunk per
             prefilling slot.
+        unified: ``True`` (default) runs the one-pass unified tick;
+            ``False`` the two-dispatch tick (a prefill pass, then a decode
+            pass): the same token streams, one more dispatch per tick
+            when prefills and decodes overlap.
+        prefix_cache: automatic prefix caching (DESIGN.md §9).  Full pages
+            are registered under token-chain digests as they fill;
+            released pages park in a zero-ref LRU; admission attaches the
+            longest cached prefix of a prompt by incref and prefills only
+            the tail.  A write into a shared page first copies it on the
+            device (``ops.copy_page`` over every pool of the cache).
+            Streams are byte-identical with the cache on or off.
         telemetry: ``True`` (default) records one trace event per tick,
             request spans and latency histograms (``metrics()``,
             :meth:`dump_trace`); ``False`` records nothing.
         trace_capacity: tick-ring size of the trace.
         preemption_policy: ``"longest"`` or ``"newest"``: who gives pages
             back when the pool runs dry mid-decode.
+        kv_dtype: ``None``/``"fp"`` keeps pages in the model dtype;
+            ``"int8"`` stores them quantized (one fp32 scale per token row
+            and kv head in parallel scale pools), ``head_dim + 4`` bytes
+            per row and head instead of ``head_dim * itemsize``.  Streams
+            may differ from fp pages (quantization is lossy).
         live_block_quantum: floor for the live-block bound before
             power-of-two bucketing.
         device: where the cache lives and the ticks run; ``cuda`` unless
@@ -125,17 +150,9 @@ class PagedServingEngine:
         if not paged_attn.supports(cfg):
             raise ValueError("paged engine needs a pure-attention "
                              "decoder-only arch")
-        if not unified:
-            raise _later("unified=False (the two-dispatch tick)",
-                         "Queue 1 item 6")
-        if prefix_cache:
-            raise _later("prefix_cache=True", "Queue 1 item 6 and Queue 2 "
-                         "item 3")
         if speculate:
             raise _later("speculate=True", "Queue 1 item 6")
-        if kv_dtype == "int8":
-            raise _later("kv_dtype='int8'", "Queue 2 item 1, int8 variant")
-        if kv_dtype not in (None, "fp"):
+        if kv_dtype not in (None, "fp", "int8"):
             raise ValueError(f"kv_dtype must be None, 'fp' or 'int8', "
                              f"got {kv_dtype!r}")
         if preempt == "swap":
@@ -166,8 +183,13 @@ class PagedServingEngine:
         self.num_blocks = num_blocks or max_slots * self.max_blocks + 1
         self.prefill_chunk = prefill_chunk
         self.token_budget = token_budget
+        self.unified = unified
+        self.prefix_cache = prefix_cache
+        self.kv_dtype = "int8" if kv_dtype == "int8" else "fp"
         self.live_block_quantum = live_block_quantum
-        self.dispatches = 0            # unified ticks launched so far
+        self.dispatches = 0            # step passes launched so far
+        self.prefix_hit_tokens = 0     # prompt tokens served from the cache
+        self.prefix_lookup_tokens = 0  # prompt tokens matched against it
         if clock is None:
             clock = time.perf_counter
         self.telemetry = ServingTelemetry(enabled=telemetry,
@@ -180,13 +202,22 @@ class PagedServingEngine:
         self._tick_device_t0: Optional[float] = None
 
         self.cache = paged_attn.init_paged_cache(cfg, self.num_blocks,
-                                                 block_size, self.device)
-        itemsize = self.cache["k"].element_size()
-        page_bytes = (2 * cfg.n_layers * block_size * cfg.n_kv_heads
-                      * cfg.head_dim * itemsize)
+                                                 block_size, self.device,
+                                                 kv_dtype=self.kv_dtype)
+        # an int8 page costs one byte per element plus one fp32 scale per
+        # token row per kv head; the fp baseline rides beside it so
+        # utilization() can report the capacity multiplier
+        fp_page_bytes = (2 * cfg.n_layers * block_size * cfg.n_kv_heads
+                         * cfg.head_dim * compute_dtype(cfg).itemsize)
+        if self.kv_dtype == "int8":
+            page_bytes = (2 * cfg.n_layers * block_size * cfg.n_kv_heads
+                          * (cfg.head_dim + 4))
+        else:
+            page_bytes = fp_page_bytes
         self.alloc = BlockAllocator(self.num_blocks, block_size,
                                     page_bytes_per_shard=page_bytes,
-                                    fp_page_bytes_per_shard=page_bytes)
+                                    kv_dtype=self.kv_dtype,
+                                    fp_page_bytes_per_shard=fp_page_bytes)
         self.tables = [BlockTable(self.alloc, self.max_blocks)
                        for _ in range(max_slots)]
         self.scheduler = FCFSScheduler(preemption_policy=preemption_policy,
@@ -197,8 +228,12 @@ class PagedServingEngine:
         self.slot_phase = [IDLE] * max_slots
         self.slot_seq: List[Optional[np.ndarray]] = [None] * max_slots
         self.slot_filled = np.zeros(max_slots, np.int64)  # tokens in cache
+        # per-slot digests of the full pages written (or attached) so far:
+        # the prefix cache's registration cursor
+        self.slot_chain: List[List[bytes]] = [[] for _ in range(max_slots)]
         self.finished: Dict[int, PagedRequest] = {}
         self._next_id = 0
+        self._null_row = np.zeros((self.max_blocks,), np.int32)
 
     @property
     def capacity_tokens(self) -> int:
@@ -281,20 +316,26 @@ class PagedServingEngine:
     def metrics(self) -> Dict[str, object]:
         """Point-in-time engine report with the JAX engine's fields;
         sections of options not ported yet report their disabled shape."""
+        hit, seen = self.prefix_hit_tokens, self.prefix_lookup_tokens
         return {"scheduler": self.scheduler.summary(),
                 "blocks": self.alloc.utilization(),
                 "queue_depth": len(self.scheduler.waiting),
                 "free_page_fraction":
                     self.alloc.num_free / max(1, self.num_blocks - 1),
-                "tick": "unified",
+                "tick": "unified" if self.unified else "legacy",
                 "token_budget": self.token_budget,
-                "kv_dtype": "fp",
+                "kv_dtype": self.kv_dtype,
                 "preempt": "recompute",
                 "swapped_requests_waiting": 0,
                 "prefix_cache": {
-                    "enabled": False, "hit_tokens": 0, "lookup_tokens": 0,
-                    "hit_rate": 0.0, "page_hits": 0, "evictions": 0,
-                    "cow_copies": 0, "cached_pages": 0},
+                    "enabled": self.prefix_cache,
+                    "hit_tokens": hit,
+                    "lookup_tokens": seen,
+                    "hit_rate": hit / seen if seen else 0.0,
+                    "page_hits": self.alloc.cache_hits,
+                    "evictions": self.alloc.cache_evictions,
+                    "cow_copies": self.alloc.cow_copies,
+                    "cached_pages": self.alloc.num_cached},
                 "speculative": {
                     "enabled": False, "draft_k": 0, "drafted_tokens": 0,
                     "accepted_tokens": 0, "accept_rate": 0.0},
@@ -314,6 +355,7 @@ class PagedServingEngine:
         self.slot_phase[slot] = IDLE
         self.slot_seq[slot] = None
         self.slot_filled[slot] = 0
+        self.slot_chain[slot] = []
 
     def _finish(self, slot: int, *, oom: bool = False) -> None:
         req = self.slot_req[slot]
@@ -371,8 +413,20 @@ class PagedServingEngine:
                 return
             self.slot_req[slot] = req
             self.slot_phase[slot] = PREFILL
-            self.slot_seq[slot] = req.prefill_tokens()
+            seq = req.prefill_tokens()
+            self.slot_seq[slot] = seq
             self.slot_filled[slot] = 0
+            self.slot_chain[slot] = []
+            if self.prefix_cache:
+                matched, chain, blocks = self._match_prefix(seq)
+                if blocks:
+                    # attach the cached prefix by incref: prefill (and the
+                    # scheduler's token budget) covers only the tail
+                    self.tables[slot].fork_from_prefix(blocks)
+                    self.slot_filled[slot] = matched
+                    self.slot_chain[slot] = chain
+                    self.prefix_hit_tokens += matched
+                self.prefix_lookup_tokens += int(seq.size)
             self.scheduler.on_admit(req.req_id)
 
     def _accept(self, slot: int, tok: int, emitted: Dict[int, int]) -> None:
@@ -382,8 +436,122 @@ class PagedServingEngine:
         req.generated.append(tok)
         self.scheduler.on_token(req.req_id)
         emitted[req.req_id] = tok
+        self._register_pages(slot)
         if len(req.generated) >= req.max_new_tokens:
             self._finish(slot)
+
+    # ------------------------------------------------------------------
+    # prefix cache (DESIGN.md §9)
+    # ------------------------------------------------------------------
+    def _match_prefix(self, seq: np.ndarray):
+        """Walk ``seq``'s token-chain digests through the allocator's hash
+        index: the longest run of full pages already resident (in use by
+        another request or parked in the zero-ref cache) is the cached
+        prefix.  Returns ``(matched_tokens, chain, blocks)``.  At least one
+        token is always left to prefill (the first generated token comes
+        from the prompt's last logits), so a fully cached prompt recomputes
+        its last token into a copy-on-write page."""
+        bs = self.block_size
+        chain: List[bytes] = []
+        blocks: List[int] = []
+        parent = b""
+        for k in range(int(seq.size) // bs):
+            digest = page_digest(parent, seq[k * bs:(k + 1) * bs])
+            blk = self.alloc.lookup(digest)
+            if blk is None:
+                break
+            chain.append(digest)
+            blocks.append(blk)
+            parent = digest
+        matched = len(blocks) * bs
+        if matched >= seq.size:
+            matched = int(seq.size) - 1
+            if len(blocks) >= self.num_blocks - 1:
+                # a full match that alone fills the pool: the last token's
+                # copy-on-write page could never be allocated, so match
+                # page-aligned and re-prefill the last page instead
+                chain.pop()
+                blocks.pop()
+                matched = len(blocks) * bs
+        return matched, chain, blocks
+
+    def _tokens_range(self, slot: int, a: int, b: int) -> np.ndarray:
+        """Tokens written at positions [a, b) of ``slot``: prefill tokens
+        from ``slot_seq``, decode-written ones from ``generated``."""
+        seq = self.slot_seq[slot]
+        if b <= seq.size:
+            return seq[a:b]
+        req = self.slot_req[slot]
+        gen = np.asarray(req.generated, np.int32)
+        # position p >= seq.size holds generated[p - prompt_size]
+        tail = gen[seq.size - req.prompt.size:]
+        return np.concatenate([seq, tail])[a:b]
+
+    def _register_pages(self, slot: int) -> None:
+        """Extend the slot's digest chain over pages that just became full
+        and index them in the allocator (content-addressed, deduplicated)
+        so later prompts can attach them."""
+        if not self.prefix_cache:
+            return
+        bs = self.block_size
+        chain = self.slot_chain[slot]
+        for k in range(len(chain), int(self.slot_filled[slot]) // bs):
+            parent = chain[-1] if chain else b""
+            digest = page_digest(parent,
+                                 self._tokens_range(slot, k * bs,
+                                                    (k + 1) * bs))
+            chain.append(digest)
+            self.alloc.register(self.tables[slot].blocks[k], digest)
+
+    def _cow_writable(self, slot: int, a: int, b: int, *,
+                      may_preempt: bool) -> bool:
+        """Make positions [a, b) of ``slot`` safe to scatter into: a shared
+        page in that range is first copied on the device to a private page,
+        so the kernel's fused scatter never writes a page another table or
+        the hash index can still read.  The private page follows the
+        caller's pressure policy: prefill never preempts (the caller
+        vacates), decode growth may evict victims as ``_ensure_blocks``
+        does.  Returns False when no page can be found."""
+        tab = self.tables[slot]
+        bs = self.block_size
+        shared = tab.shared                # cow() shrinks it as we go
+        for idx in range(a // bs, (b - 1) // bs + 1):
+            if idx >= shared:
+                break                      # shared pages are a prefix
+            if not self.alloc.page_shared(tab.blocks[idx]):
+                continue                   # already exclusively ours
+            while True:
+                new = self.alloc.allocate()
+                if new is not None:
+                    break
+                if not may_preempt:
+                    return False
+                victim = self._choose_victim_for(slot)
+                if victim is None:
+                    return False
+                self._preempt(victim)
+            self._copy_page(tab.blocks[idx], new)
+            tab.cow(idx, new)
+        return True
+
+    @torch.no_grad()
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The COW step: page ``src`` over ``dst`` in every pool of the
+        cache (K, V and, with int8 pages, their scale pools)."""
+        for pool in self.cache.values():
+            paged_ops.copy_page(pool, src, dst)
+
+    def _grow_decode(self, slot: int) -> None:
+        """Room for one decode token: grow the table (may preempt) and
+        make the slot's next position writable; finish the request (OOM)
+        when neither the table nor the pool has room."""
+        filled = int(self.slot_filled[slot])
+        if filled >= self.capacity_tokens:
+            self._finish(slot, oom=True)     # out of table bounds
+        elif not self._ensure_blocks(slot, filled + 1) \
+                or not self._cow_writable(slot, filled, filled + 1,
+                                          may_preempt=True):
+            self._finish(slot, oom=True)     # pool dry, no victims
 
     # ------------------------------------------------------------------
     # the unified tick
@@ -446,7 +614,9 @@ class PagedServingEngine:
             if n <= 0:
                 continue
             start = int(self.slot_filled[slot])
-            if not self.tables[slot].ensure(start + n):
+            if not self.tables[slot].ensure(start + n) \
+                    or not self._cow_writable(slot, start, start + n,
+                                              may_preempt=False):
                 # pool dry: admission never preempts — give back whatever
                 # was allocated and wait for in-flight requests to free
                 # pages; submit() guarantees the request fits eventually
@@ -456,11 +626,7 @@ class PagedServingEngine:
         for slot in decode_slots:
             if self.slot_req[slot] is None:
                 continue                         # preempted by an earlier slot
-            filled = int(self.slot_filled[slot])
-            if filled >= self.capacity_tokens:
-                self._finish(slot, oom=True)     # out of table bounds
-            elif not self._ensure_blocks(slot, filled + 1):
-                self._finish(slot, oom=True)     # pool dry, no victims
+            self._grow_decode(slot)
         plan = [(s, a, b) for s, a, b in plan
                 if self.slot_req[s] is not None
                 and self.slot_phase[s] == PREFILL]
@@ -538,19 +704,131 @@ class PagedServingEngine:
         for slot in ctx["decoding"]:
             self._accept(slot, int(next_tokens[slot, 0]), emitted)
         for slot, start, end in ctx["plan"]:
-            req = self.slot_req[slot]
-            self.slot_filled[slot] = end
-            if end < self.slot_seq[slot].size:
-                continue  # more chunks to go
-            self.slot_phase[slot] = DECODE
-            if not req.generated:
-                # first generated token comes from the prompt's last logits
-                nxt = int(next_tokens[slot, 0])
-                req.generated.append(nxt)
-                emitted[req.req_id] = nxt
-                self.scheduler.on_token(req.req_id)
-            if len(req.generated) >= req.max_new_tokens:
-                self._finish(slot)
+            self._advance_prefill(slot, end, int(next_tokens[slot, 0]),
+                                  emitted)
+        return emitted
+
+    def _advance_prefill(self, slot: int, end: int, nxt: int,
+                         emitted: Dict[int, int]) -> bool:
+        """A prefill chunk of ``slot`` up to position ``end`` has run;
+        ``nxt`` is the greedy id at its last token.  Registers the pages it
+        filled; on the prompt's last chunk moves the slot to decode and
+        emits the first generated token.  Returns True when the slot
+        became decodable."""
+        req = self.slot_req[slot]
+        self.slot_filled[slot] = end
+        self._register_pages(slot)
+        if end < self.slot_seq[slot].size:
+            return False                 # more chunks to go
+        self.slot_phase[slot] = DECODE
+        if not req.generated:
+            # first generated token comes from the prompt's last logits
+            req.generated.append(nxt)
+            emitted[req.req_id] = nxt
+            self.scheduler.on_token(req.req_id)
+        if len(req.generated) >= req.max_new_tokens:
+            self._finish(slot)
+        return True
+
+    # ------------------------------------------------------------------
+    # the two-dispatch tick (unified=False)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _run(self, tokens: np.ndarray, positions: np.ndarray,
+             tables: np.ndarray) -> np.ndarray:
+        """One ``paged_step`` pass of the two-dispatch tick; returns the
+        (B, S) greedy next-token ids on the host (the pass's sync)."""
+        fence = self.telemetry.enabled
+        t0 = 0.0
+        if fence:
+            t0 = self.telemetry.clock()
+            if self._tick_device_t0 is None:
+                self._tick_device_t0 = t0
+        dev = self.device
+        logits, _ = paged_attn.paged_step(
+            self.cfg, self.params, self.cache,
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(positions).to(dev),
+            torch.from_numpy(tables).to(dev),
+            max_live_blocks=self._live_bound(positions))
+        self.dispatches += 1
+        out = torch.argmax(logits[..., :self.cfg.vocab], dim=-1).to(
+            torch.int32).cpu().numpy()
+        if fence:
+            self._tick_device_s += self.telemetry.clock() - t0
+        return out
+
+    def _prefill_tick(self):
+        """One chunk of prefill for every admitting slot, in one pass.
+        Returns ({req_id: first_token} for prompts completed this tick,
+        the set of slots that just became decodable: they sit out this
+        tick's decode, so a step emits at most one token per request)."""
+        emitted: Dict[int, int] = {}
+        ready: set = set()
+        C = self.prefill_chunk
+        plan = []  # (slot, start, end)
+        for slot, req in enumerate(self.slot_req):
+            if req is None or self.slot_phase[slot] != PREFILL:
+                continue
+            start = int(self.slot_filled[slot])
+            end = min(start + C, self.slot_seq[slot].size)
+            if not self.tables[slot].ensure(end) \
+                    or not self._cow_writable(slot, start, end,
+                                              may_preempt=False):
+                self._vacate_dry(slot)     # admission never preempts
+                continue
+            plan.append((slot, start, end))
+        if not plan:
+            return emitted, ready
+        n_pf = sum(end - start for _, start, end in plan)
+        tp = self._tick_pack   # every slot is padded to a whole chunk
+        tp[0] += n_pf
+        tp[1] += self.max_slots * C
+        tp[2] += n_pf
+        tokens = np.zeros((self.max_slots, C), np.int32)
+        positions = np.full((self.max_slots, C), -1, np.int32)
+        tables = np.tile(self._null_row, (self.max_slots, 1))
+        for slot, start, end in plan:
+            n = end - start
+            tokens[slot, :n] = self.slot_seq[slot][start:end]
+            positions[slot, :n] = np.arange(start, end, dtype=np.int32)
+            tables[slot] = self.tables[slot].as_row()
+        next_tokens = self._run(tokens, positions, tables)
+        for slot, start, end in plan:
+            if self._advance_prefill(slot, end,
+                                     int(next_tokens[slot, end - start - 1]),
+                                     emitted):
+                ready.add(slot)
+        return emitted, ready
+
+    def _decode_tick(self, skip=frozenset()) -> Dict[int, int]:
+        """One decode pass: one token for every decoding slot (``skip``:
+        slots whose prefill completed this very tick)."""
+        emitted: Dict[int, int] = {}
+        for slot, req in enumerate(self.slot_req):
+            if req is None or self.slot_phase[slot] != DECODE \
+                    or slot in skip:
+                continue
+            self._grow_decode(slot)
+        decoding = [s for s, r in enumerate(self.slot_req)
+                    if r is not None and self.slot_phase[s] == DECODE
+                    and s not in skip]
+        if not decoding:
+            return emitted
+        tp = self._tick_pack
+        tp[0] += len(decoding)
+        tp[1] += self.max_slots
+        tp[3] += len(decoding)
+        tokens = np.zeros((self.max_slots, 1), np.int32)
+        positions = np.full((self.max_slots, 1), -1, np.int32)
+        tables = np.tile(self._null_row, (self.max_slots, 1))
+        for slot in decoding:
+            tokens[slot, 0] = self.slot_req[slot].generated[-1]
+            positions[slot, 0] = int(self.slot_filled[slot])
+            tables[slot] = self.tables[slot].as_row()
+        next_tokens = self._run(tokens, positions, tables)
+        for slot in decoding:
+            self._accept(slot, int(next_tokens[slot, 0]), emitted)
         return emitted
 
     # ------------------------------------------------------------------
@@ -562,16 +840,25 @@ class PagedServingEngine:
             raise RuntimeError("step_begin() called with a tick already "
                                "in flight; call step_end() first")
         tel = self.telemetry
-        pend: Dict[str, object] = {"kind": "unified"}
+        pend: Dict[str, object] = {"kind": "unified" if self.unified
+                                   else "legacy"}
         if tel.enabled:
             self._tick_pack = [0, 0, 0, 0]
             self._tick_device_s = 0.0
             self._tick_device_t0 = None
             pend["pre"] = (self.scheduler.preemptions_total,
+                           self.alloc.cow_copies, self.prefix_hit_tokens,
                            self.dispatches, len(self.finished))
             pend["t0"] = tel.clock()
         self._admit()
-        pend["ctx"] = self._unified_launch()
+        if self.unified:
+            pend["ctx"] = self._unified_launch()
+        else:
+            # the two-dispatch tick syncs between its passes, so it runs
+            # whole here and step_end returns what it emitted
+            emitted, fresh = self._prefill_tick()
+            emitted.update(self._decode_tick(skip=fresh))
+            pend["emitted"] = emitted
         self._pending = pend
         return pend
 
@@ -585,7 +872,10 @@ class PagedServingEngine:
             raise RuntimeError("step_end() without a matching "
                                "step_begin()")
         self._pending = None
-        emitted = self._unified_collect(pending["ctx"])
+        if "emitted" in pending:
+            emitted = pending["emitted"]
+        else:
+            emitted = self._unified_collect(pending["ctx"])
         tel = self.telemetry
         if "t0" in pending:
             pre = pending["pre"]
@@ -602,16 +892,18 @@ class PagedServingEngine:
                 live_slots=self.active,
                 waiting=len(self.scheduler.waiting),
                 pool_free=free, pool_cached=cached, pool_in_use=in_use,
-                prefix_hit_tokens=0,
+                prefix_hit_tokens=self.prefix_hit_tokens - pre[2],
                 preemptions=self.scheduler.preemptions_total - pre[0],
-                cow_copies=0, dispatches=self.dispatches - pre[1],
-                finished=len(self.finished) - pre[2])
+                cow_copies=self.alloc.cow_copies - pre[1],
+                dispatches=self.dispatches - pre[3],
+                finished=len(self.finished) - pre[4],
+                quant=self.kv_dtype == "int8")
         return emitted
 
     def step(self) -> Dict[int, int]:
         """Admit, then advance every in-flight request by one tick: one
         token per decoding slot and one chunk per prefilling slot, in ONE
-        pass.  Returns {req_id: new_token}, including first tokens from
+        pass (two on the ``unified=False`` tick).  Returns {req_id: new_token}, including first tokens from
         completed prefills.  Exactly ``step_end(step_begin())``."""
         return self.step_end(self.step_begin())
 

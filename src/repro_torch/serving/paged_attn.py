@@ -1,10 +1,15 @@
 """Paged-KV serving step: pooled cache, per-layer fused scatter + walk, and
 the engine's unified ragged tick.  The counterpart of
-``repro/serving/paged_attn.py`` for fp pools on one device.
+``repro/serving/paged_attn.py`` on one device.
 
 Layout (vLLM-style): the K/V cache is one pool per tensor
 
     k, v : (L, num_blocks, block_size, n_kv_heads, head_dim)
+
+in the model dtype, or int8 with ``kv_dtype="int8"``, when two fp32 scale
+pools ride beside them (one scale per token row and kv head):
+
+    k_scale, v_scale : (L, num_blocks, block_size, n_kv_heads)
 
 and a request owns pages through a block table (logical block -> physical
 page); position ``p`` lives at page ``table[p // bs]``, offset ``p % bs``.
@@ -44,23 +49,52 @@ def supports(cfg) -> bool:
 def init_paged_cache(cfg, num_blocks: int, block_size: int,
                      device: DeviceLike = None, dtype=None,
                      kv_dtype: Optional[str] = None) -> Params:
-    """Pooled paged KV cache for the full stack (block 0 = null block), in
-    the model dtype.  int8 pages are a later slice."""
+    """Pooled paged KV cache for the full stack (block 0 = null block).
+
+    ``kv_dtype`` None or ``"fp"``: K/V pools in the model dtype (or
+    ``dtype``).  ``"int8"``: int8 K/V pools plus fp32 ``k_scale`` /
+    ``v_scale`` pools of shape (L, NB, BS, Hkv), one scale per token row
+    and kv head, written by the quantizing scatter and read by the
+    dequantizing walk.
+    """
     if not supports(cfg):
         raise ValueError("paged cache needs a pure-attention decoder stack")
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "kv_dtype='int8' is not ported yet (ROADMAP.md Queue 2 item 1, "
-            "int8 variant)")
-    if kv_dtype not in (None, "fp"):
+    if kv_dtype not in (None, "fp", "int8"):
         raise ValueError(f"kv_dtype must be None|'fp'|'int8', "
                          f"got {kv_dtype!r}")
     dev = resolve_device(device)
-    dt = dtype or compute_dtype(cfg)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)}
+    dt = dtype or compute_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    positions: torch.Tensor, *, window: int, softcap: float,
+                    max_live_blocks: Optional[int] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over block-table-indexed pages of one layer, read-only.
+
+    q : (B, S, H, D); positions (B, S) query positions (-1 = padded row);
+    pools (NB, BS, Hkv, D), with their scale pools when int8.  Returns
+    (B, S, H, D).  A thin delegate to the op boundary: the read-only CUDA
+    walk for CUDA tensors, its plain version for CPU ones.
+    """
+    return paged_ops.paged_attention(q, k_pool, v_pool, block_tables,
+                                     positions, window=window,
+                                     softcap=softcap,
+                                     max_live_blocks=max_live_blocks,
+                                     k_scale=k_scale, v_scale=v_scale)
 
 
 def _paged_layer(lp: Params, x: torch.Tensor, cfg, *,
@@ -68,10 +102,13 @@ def _paged_layer(lp: Params, x: torch.Tensor, cfg, *,
                  k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_tables: torch.Tensor,
                  max_live_blocks: Optional[int],
-                 row_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 row_map: Optional[torch.Tensor] = None,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One dense layer over the paged cache (attn -> mlp), mirroring
     ``transformer.layer_body`` with the dense-cache insert/read swapped
-    for the fused paged scatter + walk."""
+    for the fused paged scatter + walk.  ``k_scale``/``v_scale``: the
+    layer's scale pools when its K/V pools are int8."""
     B, S, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     xn = apply_norm(lp["ln1"], x)
@@ -83,14 +120,16 @@ def _paged_layer(lp: Params, x: torch.Tensor, cfg, *,
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     if row_map is None:
-        out, _, _ = paged_ops.paged_attention_update(
+        out = paged_ops.paged_attention_update(
             q, k, v, k_pool, v_pool, block_tables, positions, window=window,
-            softcap=cfg.attn_logit_softcap, max_live_blocks=max_live_blocks)
+            softcap=cfg.attn_logit_softcap, max_live_blocks=max_live_blocks,
+            k_scale=k_scale, v_scale=v_scale)[0]
     else:
-        out, _, _ = paged_ops.paged_attention_unified(
+        out = paged_ops.paged_attention_unified(
             q, k, v, k_pool, v_pool, block_tables, positions, row_map,
             window=window, softcap=cfg.attn_logit_softcap,
-            max_live_blocks=max_live_blocks)
+            max_live_blocks=max_live_blocks, k_scale=k_scale,
+            v_scale=v_scale)[0]
     x = x + out.reshape(B, S, h * hd) @ ap["wo"].to(x.dtype)
     return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x), cfg.act)
 
@@ -101,15 +140,19 @@ def _stack(cfg, params: Params, cache: Params, tokens: torch.Tensor,
            max_live_blocks: Optional[int]) -> torch.Tensor:
     """Embed + every layer over the paged cache (the shared trunk of
     ``paged_step`` and ``unified_step``).  Returns the final *un-normed*
-    hidden states (B, S, d); the pools are written in place."""
+    hidden states (B, S, d); the pools (and scale pools, with int8
+    pages) are written in place."""
     x = embed_tokens(params["embed"], tokens, cfg)
     windows = layer_windows(cfg)
+    quant = "k_scale" in cache
     for i in range(cfg.n_layers):
         x = _paged_layer(layer_params(params["layers"], i), x, cfg,
                          positions=positions, window=int(windows[i]),
                          k_pool=cache["k"][i], v_pool=cache["v"][i],
                          block_tables=block_tables,
-                         max_live_blocks=max_live_blocks, row_map=row_map)
+                         max_live_blocks=max_live_blocks, row_map=row_map,
+                         k_scale=cache["k_scale"][i] if quant else None,
+                         v_scale=cache["v_scale"][i] if quant else None)
     return x
 
 

@@ -1,7 +1,7 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here is marked ``cuda`` and skips where
-``torch.cuda.is_available()`` is false (the kernel has no CPU mode).  The
+``torch.cuda.is_available()`` is false (the kernels have no CPU mode).  The
 file imports neither JAX nor ``repro``, so it runs on a GPU machine that
 has only PyTorch:
 
@@ -137,6 +137,194 @@ def test_cuda_engine_token_exact(cuda_device):
         ref = generate(cfg, params, torch.from_numpy(p)[None].to(cuda_device),
                        6)
         assert results[rid] == ref[0, len(p):].tolist()
+
+
+# --- int8 pools, the read-only walk, copy_page -------------------------------
+
+def _int8_pools(dev, c, seed):
+    """int8 pools with their fp32 scale pools, of the case's shape, on
+    ``dev``: random normal rows quantized by ``ref.quantize_rows``, as
+    the engine fills them (raw int8 garbage under |normal| scales gives
+    scores in the hundreds, a one-hot softmax, and compares nothing but
+    near-ties)."""
+    g = np.random.default_rng(seed)
+    shape = np.array(c["kp"]).shape
+    kq, ks = pa_ref.quantize_rows(torch.from_numpy(
+        g.standard_normal(shape).astype(np.float32)))
+    vq, vs = pa_ref.quantize_rows(torch.from_numpy(
+        g.standard_normal(shape).astype(np.float32)))
+    return kq.to(dev), vq.to(dev), ks.to(dev), vs.to(dev)
+
+
+@pytest.mark.parametrize("dtype,D,G,tol", [
+    (torch.float32, 16, 2, 1e-4), (torch.float32, 64, 4, 1e-4),
+    (torch.bfloat16, 256, 8, 3e-2), (torch.bfloat16, 64, 4, 3e-2)])
+def test_cuda_int8_update_matches_plain(cuda_device, dtype, D, G, tol):
+    """The fused update over int8 pools: the K/V pools and the scale pools
+    bit-equal to the plain version's (both quantize with
+    ``ref.quantize_rows``), live-row outputs within ``tol`` (the plain
+    version rounds the dequantized pages and p to q's dtype, the kernel
+    keeps them in fp32).  Two known-wrong readings land outside ``tol``: a
+    walk that skips the scales, and one that skips the scatter."""
+    c = make_case(18, S=16, filled=[10, 21, 5, 0], ns=[16, 1, 9, 0],
+                  Hkv=2, G=G, BS=16, MB=4, D=D)
+    t = _on(cuda_device, c, dtype)
+    kp, vp, ks, vs = _int8_pools(cuda_device, c, D + G)
+    live = torch.from_numpy(c["pos"] >= 0).to(cuda_device)
+    for window, softcap in ((FULL, 0.0), (12, 20.0)):
+        res = {}
+        for name, fn in (("plain", pa_ref.unified_attention_update),
+                         ("kernel", pa_kernel.paged_attention_update)):
+            res[name] = fn(t["q"], t["kn"], t["vn"], kp.clone(), vp.clone(),
+                           t["tables"], t["pos"], window=window,
+                           softcap=softcap, max_live_blocks=c["live"],
+                           k_scale=ks.clone(), v_scale=vs.clone())
+        torch.cuda.synchronize()
+        want = res["plain"][0].float()
+        err = (res["kernel"][0].float() - want)[live].abs().max().item()
+        assert err <= tol
+        assert torch.isfinite(res["kernel"][0].float()).all()
+        for i in (1, 2, 3, 4):
+            assert torch.equal(res["kernel"][i][1:], res["plain"][i][1:])
+        pk, pv, psk, psv = res["plain"][1:]
+        ones = torch.ones_like(psk)
+        for wrong in (
+                pa_ref.paged_attention(t["q"], pk, pv, t["tables"], t["pos"],
+                                       window=window, softcap=softcap,
+                                       max_live_blocks=c["live"],
+                                       k_scale=ones, v_scale=ones),
+                pa_ref.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                       window=window, softcap=softcap,
+                                       max_live_blocks=c["live"],
+                                       k_scale=ks, v_scale=vs)):
+            assert (wrong.float() - want)[live].abs().max().item() > tol
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype,D,G,tol", [
+    (torch.float32, 16, 2, 1e-4), (torch.bfloat16, 256, 8, 3e-2)])
+def test_cuda_readonly_walk_matches_plain(cuda_device, quant, dtype, D, G,
+                                          tol):
+    """The read-only walk: live-row outputs within ``tol`` of the plain
+    version, the pools' bytes unchanged, one launch counted; dropping the
+    last live page lands outside ``tol``."""
+    c = make_case(19, S=4, filled=[30, 7, 50, 0], ns=[4, 1, 3, 0], Hkv=1,
+                  G=G, BS=16, MB=5, D=D)
+    t = _on(cuda_device, c, dtype)
+    kw = {}
+    kp, vp = t["kp"], t["vp"]
+    if quant:
+        kp, vp, ks, vs = _int8_pools(cuda_device, c, 3)
+        kw = dict(k_scale=ks, v_scale=vs)
+    before = [x.clone() for x in (kp, vp, *kw.values())]
+    n = pa_kernel.readonly_launches
+    got = pa_kernel.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                    window=FULL, softcap=0.0,
+                                    max_live_blocks=c["live"], **kw)
+    want = pa_ref.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                  window=FULL, softcap=0.0,
+                                  max_live_blocks=c["live"], **kw).float()
+    dropped = pa_ref.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                     window=FULL, softcap=0.0,
+                                     max_live_blocks=c["live"] - 1, **kw)
+    torch.cuda.synchronize()
+    live = torch.from_numpy(c["pos"] >= 0).to(cuda_device)
+    assert (got.float() - want)[live].abs().max().item() <= tol
+    assert (dropped.float() - want)[live].abs().max().item() > tol
+    assert pa_kernel.readonly_launches == n + 1
+    for x, y in zip((kp, vp, *kw.values()), before):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8", "scale", "odd"])
+def test_cuda_copy_page_bit_equal(cuda_device, kind):
+    """copy_page: page dst equals page src bit for bit in every layer, and
+    every other page is untouched, for host ids and for device ids; bf16,
+    int8 and fp32 scale pools, and a page of 12 bytes (the narrow-vector
+    path)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    shape = {"bfloat16": (4, 7, 16, 2, 64), "int8": (4, 7, 16, 1, 256),
+             "scale": (18, 7, 16, 1), "odd": (3, 7, 3, 1)}[kind]
+    pool = torch.randn(shape, generator=g, device=cuda_device)
+    if kind == "bfloat16":
+        pool = pool.to(torch.bfloat16)
+    elif kind == "int8":
+        pool = (pool * 40).clamp(-127, 127).to(torch.int8)
+    for ids in ((2, 5), (torch.tensor([6, 1], dtype=torch.int32,
+                                      device=cuda_device),)):
+        before = pool.clone()
+        n = pa_kernel.copy_launches
+        pa_kernel.copy_page(pool, *ids)
+        torch.cuda.synchronize()
+        src, dst = (ids if len(ids) == 2 else ids[0].tolist())
+        assert pa_kernel.copy_launches == n + 1
+        assert torch.equal(pool[:, dst], before[:, src])
+        keep = [p for p in range(shape[1]) if p != dst]
+        assert torch.equal(pool[:, keep], before[:, keep])
+    assert pa_kernel.copy_page_errors(cuda_device) == 0
+
+
+def test_cuda_copy_page_device_ids_checked(cuda_device):
+    """Bad device-side ids copy nothing and set the device error flag;
+    host ids are checked on the host."""
+    pool = torch.randn(2, 4, 8, device=cuda_device)
+    before = pool.clone()
+    for bad in ([1, 1], [0, 4], [-1, 2]):
+        pa_kernel.copy_page(pool, torch.tensor(bad, dtype=torch.int32,
+                                               device=cuda_device))
+        assert pa_kernel.copy_page_errors(cuda_device) == 1
+    assert torch.equal(pool, before)
+    assert pa_kernel.copy_page_errors(cuda_device) == 0
+    with pytest.raises(ValueError):
+        pa_kernel.copy_page(pool, 2, 2)
+
+
+@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
+                                dict(prefix_cache=True),
+                                dict(unified=False)],
+                         ids=["int8", "prefix_cache", "legacy"])
+def test_cuda_engine_options_token_exact(cuda_device, kw):
+    """The engine's ported options on the card (reduced granite-3-2b,
+    fp32, output projections x8 as in test_cuda_engine_token_exact): the
+    streams equal the same engine's on the CPU (the plain versions), with
+    int8 pages the int8 update launching once per layer per pass, with the
+    prefix cache copy_page launching (a fully cached prompt re-served) and
+    the two-dispatch tick on the fp update."""
+    from repro_torch.config import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving import PagedServingEngine
+    cfg = reduced(get_config("granite-3-2b"))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    for k in ("attn", "mlp"):
+        params["layers"][k]["wo"] *= 8.0
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (8, 3, 10)]
+    prompts.append(prompts[0].copy())
+    outs, counts = [], None
+    for dev in (torch.device("cpu"), cuda_device):
+        eng = PagedServingEngine(cfg, _to(params, dev), max_slots=2,
+                                 block_size=4, max_blocks_per_seq=8,
+                                 prefill_chunk=4, device=dev, **kw)
+        before = (pa_kernel.launches, pa_kernel.int8_launches,
+                  pa_kernel.copy_launches)
+        ids = [eng.submit(p, 5) for p in prompts[:3]]
+        res = eng.run_to_completion()
+        ids.append(eng.submit(prompts[3], 5))
+        res.update(eng.run_to_completion())
+        outs.append([res[i] for i in ids])
+        counts = [a - b for a, b in zip((pa_kernel.launches,
+                                         pa_kernel.int8_launches,
+                                         pa_kernel.copy_launches), before)]
+    assert outs[0] == outs[1]
+    per_pass = cfg.n_layers * eng.dispatches
+    if "kv_dtype" in kw:
+        assert counts[:2] == [0, per_pass]
+    else:
+        assert counts[:2] == [per_pass, 0]
+    if "prefix_cache" in kw:
+        assert eng.metrics()["prefix_cache"]["cow_copies"] > 0
+        assert counts[2] == 2 * eng.metrics()["prefix_cache"]["cow_copies"]
 
 
 # --- the CATopt fitness kernel ----------------------------------------------

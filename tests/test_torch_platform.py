@@ -298,9 +298,39 @@ def test_serve_on_cluster_matches_generate(platform):
     (dict(host_cache_pages=8), "Queue 1 item 6"),
 ])
 def test_serve_options_not_ported(platform, kw, item):
+    """Serving options of later slices raise, naming their ROADMAP item,
+    and leave the cluster unlocked.  ``prefix_cache=True`` (kw2) and
+    ``kv_dtype="int8"`` (kw4) are ported now: they serve through the
+    verbs instead, a repeated prompt included, with exactly the tokens of
+    the port's ``generate`` (reduced granite-3-2b, fp32, on the CPU)."""
     platform.create_instance("srv")
-    with pytest.raises(NotImplementedError, match=item):
-        platform.serve_on_cluster("srv", None, None, [], **kw)
+    if "prefix_cache" not in kw and "kv_dtype" not in kw:
+        with pytest.raises(NotImplementedError, match=item):
+            platform.serve_on_cluster("srv", None, None, [], **kw)
+        assert not platform.clusters["srv"].in_use
+        return
+    from repro_torch.config import get_config, reduced
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = reduced(get_config("granite-3-2b"))
+    params = M.init_params(cfg, seed=0, device=CPU)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, cfg.vocab, 8).astype(np.int32)
+    reqs = [(prompt, 4), (rng.integers(0, cfg.vocab, 5).astype(np.int32), 3),
+            (prompt.copy(), 4)]
+    h = platform.serve_on_cluster("srv", cfg, params, reqs, runname="s",
+                                  max_slots=1, block_size=4,
+                                  max_blocks_per_seq=4, **kw)
+    out = h.result["results"]
+    for rid, (p, g) in zip(sorted(out), reqs):
+        ref = generate(cfg, params, torch.from_numpy(p)[None], g)
+        assert out[rid] == ref[0, len(p):].tolist()
+    m = h.result["metrics"]
+    if "prefix_cache" in kw:
+        assert m["prefix_cache"]["enabled"]
+        assert m["prefix_cache"]["hit_tokens"] > 0
+    else:
+        assert m["kv_dtype"] == "int8"
     assert not platform.clusters["srv"].in_use
 
 
