@@ -78,7 +78,38 @@ Phases, each raising on failure:
   9. device time per call of the fitness kernel, its plain version and
      the library route (``torch.matmul`` + the clamp/sub/square/sum
      epilogue in torch, fp32, TF32 off) at the paper's scale and the
-     polish's, beside the kernel's bound.
+     polish's, beside the kernel's bound;
+  10. the flash-attention kernels (forward without and with lse, dq,
+     dk/dv) against their plain versions, fp32 and bf16: granite-3-2b's
+     heads at both training shapes, gemma MQA at D 256, D 128 with a
+     ragged S, a 32-token window, softcap 30, non-causal, the launcher's
+     D 40.  Each row (a query's o or dq, a key's dk or dv) within
+     ``FLASH_TOL`` relative of the plain row, below what known-wrong
+     kernels give (the causal mask flipped; the last query tile's last
+     or middle 64 keys of its band dropped; no softcap factor in the backward; dk, dv of one
+     query head, not group-summed); the backward bit-equal across calls;
+  11. granite-3-2b at full width (40 layers, d 2048, vocab 49155, bf16
+     compute, fp32 masters and AdamW states, remat full) on the flash
+     path through ``loss_and_grads`` and ``make_train_step``: the first
+     step's loss and grads against plain attention (grads within
+     ``GRAD_RATIO`` times the plain path's distance from fp32, a 32-token
+     window outside it); (a) 5 steps at batch 8, seq 128 and (b) one step
+     at batch 1, seq 4096, with exactly 2 L forward-with-lse, L dq and L
+     dk/dv launches per step; a forward-only loss after (b) on the
+     forward without lse (L launches) against plain attention; the
+     step's breakdown under ``torch.profiler``;
+  11b. the training launcher through the five verbs at
+     ``examples/train_lm.py``'s reduced config (d 320, 6 layers, vocab
+     2048, batch 8, seq 128, 200 steps) with ``--pallas-attention`` and a
+     preemption at step 100: the loss falls, the run resumes from step
+     100, and its final parameters are bit-equal to an uninterrupted run;
+  12. device time per call (CUDA events behind a queued sleep, the
+     profiler's device sum beside it) of the three flash kernels at granite-3-2b's training shapes (bf16,
+     causal), their plain versions and SDPA (forward, and its backward
+     alone), beside the bound.
+
+Phases run in the order 1-6b, 10-12, 7-9, so the training state is freed
+before the CATopt phases.
 
 The last two lines are the kernel report (JSON) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -87,6 +118,7 @@ repository around it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -123,6 +155,29 @@ FIT_REPLACES = "src/repro/kernels/recovery/kernel.py:52"
 FIT_RTOL = 1e-5
 GRAD_RTOL = 1e-4         # phase 7: max |grad diff| / max |grad|
 PAPER = dict(E=8192, m=2048, P=200)   # catopt.make_problem, GAConfig()
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+FLASH_REPLACES = {"fwd": "src/repro/kernels/flash_attention/kernel.py:394",
+                  "fwd_lse": "src/repro/kernels/flash_attention/kernel.py:266",
+                  "bwd": "src/repro/kernels/flash_attention/kernel.py:316"}
+# phase 10, the worst row's ||kernel - plain|| / ||plain|| (``row_err``).
+# fp32: summation order.  bf16: outputs rounded to bf16 (ulp 2^-8
+# relative); the forward rounds p at another running max than the plain
+# version, the plain backward rounds per-head dk/dv to bf16 before the
+# group sum, the kernel once after it.  lse, max |kernel - plain| / max
+# |plain|, is fp32 on both sides.  Phase 10 prints what known-wrong
+# kernels give beside it.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ROW_ERR = "worst row's ||kernel - plain|| / ||plain||"
+LSE_TOL = 1e-5
+# phase 11, granite-3-2b in bf16: the flash path's loss against plain
+# attention's, relative (bf16 keeps about 3 significant digits); its
+# grads, worst leaf's ||flash - plain|| / ||plain||, within GRAD_RATIO
+# times the plain bf16 grads' own distance from fp32 grads
+LOSS_RTOL = 1e-2
+GRAD_RATIO = 2.0
+BLAS_KERNELS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+SLEEP_CYCLES = 100_000_000    # phase 12: about 50 ms of a queued sleep
 
 
 def log(*a):
@@ -280,10 +335,10 @@ def readonly(fn, c, quant, live=None):
               max_live_blocks=c["live"] if live is None else live, **kw)
 
 
-def judge(name, err, tol, wrong, extra=""):
+def judge(name, err, tol, wrong, extra="", what="max|kernel - plain|"):
     """Log one comparison; raise unless ``err`` is within ``tol`` and every
     known-wrong reading lies above it."""
-    log(f"[kernel] {name}: max|kernel - plain| = {err:.3e} (tol {tol:g}; "
+    log(f"[kernel] {name}: {what} = {err:.3e} (tol {tol:g}; "
         f"a wrong kernel: " + ", ".join(f"{k} {v:.3e}"
                                         for k, v in wrong.items())
         + f"){extra}")
@@ -1087,6 +1142,539 @@ def phase_family_timing(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_inputs(torch, dev, dtype, B, S, H, Hkv, D, seed=0):
+    """q, k, v, do in the kernels' flat layout, drawn on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mk(rows):
+        return torch.randn(rows, S, D, generator=g).to(dev, dtype)
+
+    return mk(B * H), mk(B * Hkv), mk(B * Hkv), mk(B * H)
+
+
+def row_err(torch, got, want):
+    """The worst row's ||got - want|| / ||want||, in fp32, over the last
+    axis: a row is one query's o or dq, or one key's dk or dv, so a wrong
+    late row (small |o| in a long causal band) counts as much as the
+    first.  A row whose ||want|| is below a tenth of the median row's is
+    held to that tenth instead: dq of a query that sees one key is a
+    difference of two equal sums, zero up to rounding."""
+    err = torch.linalg.vector_norm(got.float() - want.float(), dim=-1)
+    norm = torch.linalg.vector_norm(want.float(), dim=-1)
+    return (err / torch.clamp(norm, min=0.1 * norm.median())).max().item()
+
+
+def tile_dropped(torch, Sq, Sk, device, causal, window, middle=False,
+                 tile=64):
+    """(Sq, Sk) True where a known-wrong kernel skips the pair: the last
+    query tile loses one 64-key tile of its band, the last (the diagonal
+    under the causal mask) or the middle one (at S 4096, 64 of about 4064
+    keys)."""
+    t0 = tile * ((Sq - 1) // tile)
+    last = t0 // tile if causal else (Sk - 1) // tile
+    first = max(0, t0 - window + 1) // tile if window > 0 else 0
+    k0 = tile * ((first + last) // 2 if middle else last)
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Sk, device=device)[None, :]
+    return (qi >= t0) & (kj >= k0) & (kj < k0 + tile)
+
+
+def flash_variant(torch, q, k, v, do, lse, dsum, *, n_q_heads, causal,
+                  window, softcap, softcap_factor=True, drop=None):
+    """A known-wrong kernel as dense plain algebra: (o, dq, dk, dv per KV
+    head).  ``softcap_factor=False`` leaves the backward's (1 - tanh^2)
+    out; ``drop`` ((Sq, Sk) bool) are pairs it skips, in the forward
+    (which then normalises over what is left) and in the backward (which
+    takes the given lse and dsum)."""
+    from repro_torch.kernels.flash_attention import ref
+    BH, Sq, D = q.shape
+    rows = ref.kv_rows(BH, n_q_heads, k.shape[0], q.device)
+    kf, vf = k.float()[rows], v.float()[rows]
+    qf, dof = q.float(), do.float()
+    s = torch.matmul(qf * D ** -0.5, kf.mT)
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = t * softcap
+    mask = ref._mask(Sq, k.shape[1], causal, window, q.device)
+    if drop is not None:
+        mask = mask & ~drop
+    o = torch.matmul(torch.softmax(torch.where(mask, s, ref.NEG_INF), -1)
+                     .to(v.dtype).float(), vf).to(q.dtype)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    del s
+    ds = p * (torch.matmul(dof, vf.mT) - dsum[..., None])
+    if softcap > 0 and softcap_factor:
+        ds = ds * (1.0 - t * t)
+    dq = torch.matmul(ds, kf) * D ** -0.5
+    dk = torch.matmul(ds.mT, qf) * D ** -0.5
+    dv = torch.matmul(p.mT, dof)
+    return (o, dq, ref.group_sum(dk, n_q_heads, k.shape[0]),
+            ref.group_sum(dv, n_q_heads, k.shape[0]))
+
+
+def phase_flash_vs_plain(torch, dev):
+    """The forward (with and without lse), dq and dk/dv kernels against
+    their plain versions on the card, fp32 and bf16, row by row.
+    Returns the worst max |kernel - plain| of each: {"fwd", "fwd_lse",
+    "bwd"}."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    # (label, B, S, H, Hkv, D, causal, window, softcap); the softcap case
+    # scales q by 4, so scores reach the cap's curved part and the
+    # backward's (1 - tanh^2) factor matters
+    cases = [("granite (a)", 8, 128, 32, 8, 64, True, 0, 0.0),
+             ("granite (b)", 1, 4096, 32, 8, 64, True, 0, 0.0),
+             ("gemma MQA", 1, 256, 8, 1, 256, True, 0, 0.0),
+             ("D 128 S 200", 1, 200, 4, 2, 128, True, 0, 0.0),
+             ("window 32", 2, 200, 32, 8, 64, True, 32, 0.0),
+             ("softcap 30", 2, 200, 32, 8, 64, True, 0, 30.0),
+             ("non-causal", 2, 200, 32, 8, 64, False, 0, 0.0),
+             ("launcher D 40", 8, 128, 4, 2, 40, True, 0, 0.0)]
+    worst = {"fwd": 0.0, "fwd_lse": 0.0, "bwd": 0.0}
+    worst_row = dict(worst)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        for label, B, S, H, Hkv, D, causal, window, softcap in cases:
+            if label == "granite (b)" and dtype == torch.float32:
+                continue                   # the main path runs it in bf16
+            name = f"flash {label} {str(dtype).split('.')[-1]}"
+            q, k, v, do = flash_inputs(torch, dev, dtype, B, S, H, Hkv, D)
+            if softcap > 0:
+                q = q * 4
+            opts = dict(n_q_heads=H, causal=causal, window=window,
+                        softcap=softcap)
+            flipped = dict(opts, causal=not causal)
+            o = kernel.flash_fwd(q, k, v, **opts)
+            o2, lse = kernel.flash_fwd(q, k, v, with_lse=True, **opts)
+            po, plse = ref.flash_fwd(q, k, v, with_lse=True, **opts)
+            wrong_o = ref.flash_fwd(q, k, v, **flipped)
+            dsum = (do.float() * po.float()).sum(-1)
+            dropped = {w: flash_variant(
+                torch, q, k, v, do, plse, dsum, **opts,
+                drop=tile_dropped(torch, S, S, q.device, causal, window,
+                                  middle=w.startswith("mid")))
+                for w in ("last tile dropped", "mid-band tile dropped")}
+            torch.cuda.synchronize()
+            for key, got in (("fwd", o), ("fwd_lse", o2)):
+                err = row_err(torch, got, po)
+                judge(f"{name} {key}", err, tol,
+                      {"causal mask flipped": row_err(torch, wrong_o, po),
+                       **{w: row_err(torch, x[0], po)
+                          for w, x in dropped.items()}},
+                      what=ROW_ERR)
+                worst[key] = max(worst[key], (got.float() - po.float())
+                                 .abs().max().item())
+                worst_row[key] = max(worst_row[key], err)
+            lse_err = ((lse - plse).abs().max() / plse.abs().max()).item()
+            if not lse_err <= LSE_TOL:
+                raise AssertionError(f"{name}: lse off by {lse_err:.3e}")
+            got = kernel.flash_bwd(q, k, v, do, plse, dsum, **opts)
+            dq, dk_h, dv_h = ref.flash_bwd(q, k, v, do, plse, dsum, **opts)
+            want = (dq, ref.group_sum(dk_h, H, k.shape[0]),
+                    ref.group_sum(dv_h, H, k.shape[0]))
+            wq, wk, wv = ref.flash_bwd(q, k, v, do, plse, dsum, **flipped)
+            wrong = {"causal mask flipped": (
+                wq, ref.group_sum(wk, H, k.shape[0]),
+                ref.group_sum(wv, H, k.shape[0])),
+                **{w: x[1:] for w, x in dropped.items()}}
+            if softcap > 0:
+                wrong["no softcap factor"] = flash_variant(
+                    torch, q, k, v, do, plse, dsum, **opts,
+                    softcap_factor=False)[1:]
+            if H > Hkv:       # dk and dv of one query head per KV head
+                heads = [x.reshape(B, Hkv, H // Hkv, S, D)[:, :, 0].reshape(
+                    B * Hkv, S, D) for x in (dk_h, dv_h)]
+                wrong["dk, dv not group-summed"] = (wq, *heads)
+            torch.cuda.synchronize()
+            for i, part in enumerate(("dq", "dk", "dv")):
+                readings = {w: row_err(torch, x[i], want[i])
+                            for w, x in wrong.items()
+                            if not (part == "dq" and w.startswith("dk"))
+                            and not (part == "dv" and w.startswith("no "))}
+                err = row_err(torch, got[i], want[i])
+                judge(f"{name} {part}", err, tol, readings, what=ROW_ERR)
+                worst["bwd"] = max(worst["bwd"], (got[i].float()
+                                                  - want[i].float())
+                                   .abs().max().item())
+                worst_row["bwd"] = max(worst_row["bwd"], err)
+            del dropped, wrong
+            again = kernel.flash_bwd(q, k, v, do, plse, dsum, **opts)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: the backward is not "
+                                     f"deterministic")
+    log(f"[flash] every case within tolerance; worst row's "
+        f"||kernel - plain|| / ||plain||: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst_row.items())
+        + "; max |kernel - plain|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 11: granite-3-2b trains at full width on the flash kernels
+# ---------------------------------------------------------------------------
+
+def flash_counts():
+    from repro_torch.kernels.flash_attention import kernel
+    return {k: getattr(kernel, f"{k}_launches")
+            for k in ("fwd", "fwd_lse", "dq", "dkv")}
+
+
+def zero_flash_counts():
+    from repro_torch.kernels.flash_attention import kernel
+    for k in ("fwd", "fwd_lse", "dq", "dkv"):
+        setattr(kernel, f"{k}_launches", 0)
+
+
+def leaf_errs(torch, a, b):
+    """Per-leaf ||a - b|| / ||b|| of two gradient trees: the worst and
+    its leaf."""
+    from repro_torch.core.tree import get_path, leaf_paths
+    worst, at = 0.0, ""
+    for path in leaf_paths(b):
+        x, y = get_path(a, path).float(), get_path(b, path).float()
+        e = (torch.linalg.vector_norm(x - y)
+             / torch.linalg.vector_norm(y)).item()
+        if e > worst:
+            worst, at = e, "/".join(path)
+    return worst, at
+
+
+def train_breakdown(torch, cfg, step, st, batch):
+    """Wall and device time of one train step under ``torch.profiler``,
+    by kernel family, and of its AdamW update alone."""
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train.steps import loss_and_grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(st, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = profiled(torch, lambda: step(st, batch), 1)
+    busy = sum(r[0] for r in rows) / 1e3
+    flash = sum(r[0] for r in rows if "flash_" in r[2]) / 1e3
+    blas = sum(r[0] for r in rows
+               if any(s in r[2] for s in BLAS_KERNELS)) / 1e3
+    _, _, grads = loss_and_grads(cfg, st.params, {
+        k: v.to(st.step.device) for k, v in batch.items()})
+    adamw = device_ms(torch, lambda: adamw_update(
+        grads, st.opt_state, st.params, 1e-4, AdamWConfig()), reps=2,
+        warmup=1)
+    del grads
+    log(f"[train] step breakdown: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}; flash kernels "
+        f"{flash:.1f} ms, cuBLAS {blas:.1f} ms, AdamW (alone) {adamw:.1f} "
+        f"ms")
+    for us, n, key in rows[:8]:
+        log(f"[train]   {us / 1e3:.3f} ms x{n}  {key[:90]}")
+    return dict(wall_ms=wall, busy_ms=busy, flash_ms=flash, blas_ms=blas,
+                adamw_ms=adamw)
+
+
+def phase_train_full_width(torch, dev):
+    """granite-3-2b at full width on the flash path: the first step's loss
+    and grads against the plain-attention path, then (a) 5 steps at batch
+    8, seq 128 and (b) one step at batch 1, seq 4096, with the flash
+    launches the code implies.  Returns the launch counts of the run."""
+    import dataclasses
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (TrainState, loss_and_grads,
+                                         make_train_step)
+    base = get_config("granite-3-2b")
+    cfg = dataclasses.replace(base, use_pallas_attention=True,
+                              scan_layers=False)
+    plain = dataclasses.replace(base, scan_layers=False)
+    L = cfg.n_layers
+    torch.cuda.empty_cache()          # blocks cached by earlier phases
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev,
+                           param_dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"[train] granite-3-2b: {M.count_params(cfg) / 1e9:.3f} B fp32 "
+        f"master parameters in {time.perf_counter() - t0:.1f} s; compute "
+        f"{cfg.dtype}, remat {cfg.remat}, {L} layers, head_dim "
+        f"{cfg.head_dim}")
+    batch_a = make_batch_fn(cfg, ShapeConfig("a", 128, 8, "train"),
+                            seed=0)
+    b0 = {k: v.to(dev) for k, v in batch_a(0).items()}
+
+    # the first step's loss and grads: flash against plain attention, both
+    # bf16, beside the plain path's own distance from fp32 and a wrong
+    # attention (a 32-token window in every layer)
+    zero_flash_counts()
+    loss_f, _, g_f = loss_and_grads(cfg, params, b0)
+    torch.cuda.synchronize()
+    once = flash_counts()
+    loss_p, _, g_p = loss_and_grads(plain, params, b0)
+    err, at = leaf_errs(torch, g_f, g_p)
+    del g_f
+    loss_32, _, g_32 = loss_and_grads(
+        dataclasses.replace(plain, dtype="float32"), params, b0)
+    fp32_err, fp32_at = leaf_errs(torch, g_p, g_32)
+    del g_32
+    loss_w, _, g_w = loss_and_grads(
+        dataclasses.replace(cfg, sliding_window=32), params, b0)
+    wrong_err, _ = leaf_errs(torch, g_w, g_p)
+    del g_w, g_p
+    lf, lp, l32, lw = (x.item() for x in (loss_f, loss_p, loss_32, loss_w))
+    log(f"[train] first step loss: flash {lf:.6f}, plain {lp:.6f} "
+        f"(|diff| {abs(lf - lp):.3e}, tol {LOSS_RTOL:g} x loss); plain fp32 "
+        f"{l32:.6f}; a 32-token window {lw:.6f}")
+    if not (math.isfinite(lf) and abs(lf - lp) <= LOSS_RTOL * abs(lp)):
+        raise AssertionError("full width: the flash path's loss differs "
+                             "from plain attention's")
+    judge("granite-3-2b grads", err, GRAD_RATIO * fp32_err,
+          {"a 32-token window": wrong_err},
+          extra=f"; worst at {at}; tolerance {GRAD_RATIO:g} x the plain "
+                f"bf16 grads' distance from fp32 ({fp32_err:.3e} at "
+                f"{fp32_at})",
+          what="worst leaf's ||flash - plain|| / ||plain||")
+    want = {"fwd": 0, "fwd_lse": 2 * L, "dq": L, "dkv": L}
+    if once != want:
+        raise AssertionError(f"one loss_and_grads launched {once}, the code "
+                             f"implies {want} (remat full: forward + "
+                             f"recompute)")
+
+    st = TrainState(params, adamw_init(params, AdamWConfig()),
+                    torch.zeros((), dtype=torch.int32, device=dev))
+    del params
+    step = make_train_step(cfg, base_lr=3e-4, warmup=2, total_steps=10)
+    st, _ = step(st, batch_a(0))          # warm: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(1, 6):
+        st, m = step(st, batch_a(i))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got_a = flash_counts()
+    losses = [x.item() for x in losses]
+    log(f"[train] (a) 5 steps at batch 8, seq 128: {wall / 5 * 1e3:.1f} ms "
+        f"per step, {5 * 8 * 128 / wall:.0f} tokens/s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB; flash launches {got_a}")
+    want_a = {k: 5 * v for k, v in want.items()}
+    if got_a != want_a or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(a): launches {got_a}, the code implies "
+                             f"{want_a}; losses {losses}")
+    breakdown = train_breakdown(torch, cfg, step, st, batch_a(6))
+
+    batch_b = make_batch_fn(cfg, ShapeConfig("b", 4096, 1, "train"),
+                            seed=1)(0)
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    st, m = step(st, batch_b)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    got_b = flash_counts()
+    loss_b = m["loss"].item()
+    # the same batch forward only: the flash path without lse (row 4)
+    # against plain attention
+    bb = {k: v.to(dev) for k, v in batch_b.items()}
+    with torch.no_grad():
+        ev_f = M.loss_fn(cfg, st.params, bb)[0].item()
+        got_eval = flash_counts()
+        ev_p = M.loss_fn(plain, st.params, bb)[0].item()
+    log(f"[train] (b) 1 step at batch 1, seq 4096: {wall_b * 1e3:.1f} ms, "
+        f"loss {loss_b:.4f}; flash launches {got_b}; forward-only loss "
+        f"after it: flash {ev_f:.6f}, plain {ev_p:.6f}; launches then "
+        f"{got_eval}")
+    if got_b != want or not math.isfinite(loss_b):
+        raise AssertionError(f"(b): launches {got_b}, the code implies "
+                             f"{want}; loss {loss_b}")
+    if got_eval["fwd"] != L or abs(ev_f - ev_p) > LOSS_RTOL * abs(ev_p):
+        raise AssertionError(f"(b) forward only: {got_eval}, loss flash "
+                             f"{ev_f} against plain {ev_p}")
+    del st
+    torch.cuda.empty_cache()
+    total = {k: got_a[k] + got_eval[k] for k in got_a}
+    return dict(launches=total, breakdown=breakdown, wall_a_ms=wall / 5 * 1e3,
+                wall_b_ms=wall_b * 1e3)
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: the launcher through the five verbs on the card
+# ---------------------------------------------------------------------------
+
+def phase_train_launcher(torch, dev, steps=200):
+    """launch.train at examples/train_lm.py's reduced config with the
+    flash path and a preemption at the half, against the same run
+    uninterrupted: the loss falls, the attempts show the resume, and the
+    final parameters are bit-equal."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.core import tree
+    from repro_torch.launch import train as train_driver
+    argv = ["--reduced", "--d-model", "320", "--n-layers", "6", "--vocab",
+            "2048", "--arch", "granite-3-2b", "--steps", str(steps),
+            "--batch", "8", "--seq", "128", "--lr", "3e-3",
+            "--checkpoint-every", "50", "--pallas-attention", "--device",
+            dev.type]
+    quiet = io.StringIO()       # the driver's own JSON report
+    with tempfile.TemporaryDirectory(dir=HERE) as ws, \
+            contextlib.redirect_stdout(quiet):
+        zero_flash_counts()
+        rep = train_driver.main(argv + ["--preempt-at", str(steps // 2),
+                                        "--workspace", f"{ws}/a"])
+        launches = flash_counts()
+        ref = train_driver.main(argv + ["--workspace", f"{ws}/b"])
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.flatten(rep["state"])[0], tree.flatten(ref["state"])[0]))
+    resumed = [a["resumed_from"] for a in rep["attempts"]]
+    log(f"[launcher] {rep['params']} parameters on {rep['device']}: loss "
+        f"{rep['first_loss']:.3f} -> {rep['last_loss']:.3f} (floor "
+        f"{rep['entropy_floor']:.3f}) in {rep['wall_s']} s; attempts "
+        f"resumed from {resumed}; flash launches {launches}; final params "
+        f"bit-equal to an uninterrupted run: {same}")
+    if not rep["first_loss"] - rep["last_loss"] > 0.5:
+        raise AssertionError("launcher: the loss did not fall")
+    if resumed != [None, steps // 2] or not same:
+        raise AssertionError("launcher: the preempted run did not resume "
+                             "to the uninterrupted run's parameters")
+    if launches["fwd_lse"] == 0 or launches["dq"] != launches["dkv"]:
+        raise AssertionError(f"launcher: flash launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: flash-attention timing
+# ---------------------------------------------------------------------------
+
+def flash_bound(torch, dtype, B, S, H, Hkv, D, *, backward, lse=True):
+    """Least time on an H100 SXM: every input byte read once and every
+    output written once (forward: q, k, v in, o and, with ``lse``, lse
+    out; backward: q,
+    k, v, do, lse, dsum in, dq, dk, dv out), or the operations the visible
+    (query, key) pairs need (4 D each forward, 10 D backward: S and dP,
+    then dQ, dK, dV) at the input type's peak, whichever is larger."""
+    item = torch.empty((), dtype=dtype).element_size()
+    pairs = B * H * S * (S + 1) // 2                 # causal
+    q_bytes, kv_bytes, row_bytes = B * H * S * D * item, \
+        B * Hkv * S * D * item, B * H * S * 4
+    if backward:
+        nbytes = 3 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+        ops = 10 * D * pairs
+    else:
+        nbytes = 2 * q_bytes + 2 * kv_bytes + (row_bytes if lse else 0)
+        ops = 4 * D * pairs
+    dt = str(dtype).split(".")[-1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def event_ms(torch, fn, reps, warmup=2):
+    """Device milliseconds per call: (median, least, most) over ``reps``
+    calls, each between CUDA events of its own, and whether the queue
+    held.  A sleep kernel queued first keeps the card busy while the host
+    issues the calls, so the card runs them back to back and a delay of
+    the host falls between two calls, not inside one; the queue held if
+    the sleep was still running when the host had issued the last call."""
+    for _ in range(warmup):
+        fn()
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(reps)]
+    slept = torch.cuda.Event()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    slept.record()
+    for start, stop in marks:
+        start.record()
+        fn()
+        stop.record()
+    held = not slept.query()
+    torch.cuda.synchronize()
+    ts = sorted(start.elapsed_time(stop) for start, stop in marks)
+    return ts[len(ts) // 2], ts[0], ts[-1], held
+
+
+def phase_flash_timing(torch, dev):
+    """Device time per call of the three flash kernels at granite-3-2b's
+    full-width training shapes, bf16 causal, beside the bound, the plain
+    versions and SDPA (forward, and backward alone).  The median of CUDA
+    events around each call (``event_ms``), with ``torch.profiler``'s
+    device sum beside it: at S 4096 the profiler reported no device time
+    for the forward kernel and for SDPA's forward, and part of the
+    backward's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+    out = {}
+    for label, B, S in (("(a)", 8, 128), ("(b)", 1, 4096)):
+        H, Hkv, D, dt = 32, 8, 64, torch.bfloat16
+        q, k, v, do = flash_inputs(torch, dev, dt, B, S, H, Hkv, D)
+        opts = dict(n_q_heads=H, causal=True)
+        o, lse = kernel.flash_fwd(q, k, v, with_lse=True, **opts)
+        dsum = (do.float() * o.float()).sum(-1)
+        reps = 30 if S <= 512 else 9
+        # SDPA in its (B, H, S, D) layout, GQA without repeat; the layout
+        # change happens outside the timed calls
+        qs, ks, vs, dos = (x.reshape(B, -1, S, D) for x in (q, k, v, do))
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
+        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                            enable_gqa=True)
+        calls = {
+            "fwd": lambda: kernel.flash_fwd(q, k, v, **opts),
+            "fwd_lse": lambda: kernel.flash_fwd(q, k, v, with_lse=True,
+                                                **opts),
+            "bwd": lambda: kernel.flash_bwd(q, k, v, do, lse, dsum, **opts),
+            "plain fwd": lambda: ref.flash_fwd(q, k, v, **opts),
+            "plain fwd_lse": lambda: ref.flash_fwd(q, k, v, with_lse=True,
+                                                   **opts),
+            "plain bwd": lambda: ref.flash_bwd(q, k, v, do, lse, dsum,
+                                               **opts),
+            "sdpa fwd": lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True),
+            "sdpa bwd": lambda: torch.autograd.grad(
+                og, (qg, kg, vg), dos, retain_graph=True)}
+        ev, prof = {}, {}
+        for name, fn in calls.items():
+            n = 5 if name.startswith("plain") else reps
+            for _ in range(3):
+                med, lo, hi, held = event_ms(torch, fn, n)
+                if held:
+                    break
+                log(f"[time] flash {label} {name}: the card drained its "
+                    f"queue before the host issued the last call; again")
+            else:
+                raise AssertionError(f"flash timing {label} {name}: the "
+                                     f"queue never held")
+            ev[name] = med
+            prof[name] = device_ms(torch, fn, reps=n, warmup=1)
+            log(f"[time] flash {label} {name}: CUDA events per call, "
+                f"median {med:.4f} ms of {n} (least {lo:.4f}, most "
+                f"{hi:.4f}); the profiler's device sum per call "
+                f"{prof[name]:.4f} ms")
+        t = {k: ev[k] for k in ("fwd", "fwd_lse", "bwd")}
+        plain = {k: ev[f"plain {k}"] for k in t}
+        sdpa_fwd, sdpa_bwd = ev["sdpa fwd"], ev["sdpa bwd"]
+        for key in t:
+            bwd = key == "bwd"
+            b_ms, b_by = flash_bound(torch, dt, B, S, H, Hkv, D,
+                                     backward=bwd, lse=key != "fwd")
+            out[(label, key)] = dict(
+                ms=t[key], plain_ms=plain[key], bound_ms=b_ms, bound_by=b_by,
+                library_ms=sdpa_bwd if bwd else sdpa_fwd)
+            log(f"[time] flash {key} {label} B {B} S {S} H {H} Hkv {Hkv} "
+                f"D {D} bf16 causal, device time per call (CUDA events): "
+                f"kernel "
+                f"{t[key]:.4f} ms, plain {plain[key]:.4f} ms, sdpa "
+                f"{'backward' if bwd else 'forward'} "
+                f"{out[(label, key)]['library_ms']:.4f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the fitness kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1413,6 +2001,10 @@ def main():
     del full                            # the full-width weights
     timing = phase_timing(torch, dev)
     family_timing = phase_family_timing(torch, dev)
+    flash_err = phase_flash_vs_plain(torch, dev)
+    train = phase_train_full_width(torch, dev)
+    phase_train_launcher(torch, dev)
+    flash_time = phase_flash_timing(torch, dev)
     from repro_torch.core.catopt import make_problem
     problem = make_problem(seed=0, n_events=PAPER["E"], n_dims=PAPER["m"],
                            device=dev)
@@ -1437,7 +2029,16 @@ def main():
               family_timing["read-only fp"]),
         entry("copy_page", COPY_SOURCE, COPY_REPLACES,
               family_launches["copy"], family_err["copy"],
-              family_timing["copy_page"]), {
+              family_timing["copy_page"]),
+        entry("flash_attention_pallas", FLASH_SOURCE,
+              FLASH_REPLACES["fwd"], train["launches"]["fwd"],
+              flash_err["fwd"], flash_time[("(a)", "fwd")]),
+        entry("flash_attention_fwd_lse", FLASH_SOURCE,
+              FLASH_REPLACES["fwd_lse"], train["launches"]["fwd_lse"],
+              flash_err["fwd_lse"], flash_time[("(a)", "fwd_lse")]),
+        entry("flash_attention_bwd", FLASH_SOURCE, FLASH_REPLACES["bwd"],
+              train["launches"]["dq"] + train["launches"]["dkv"],
+              flash_err["bwd"], flash_time[("(a)", "bwd")]), {
         "name": "fitness_sq", "route": "cuda",
         "source": FIT_SOURCE, "replaces": FIT_REPLACES,
         "launches": fit_launches, "max_abs_err": fit_abs,

@@ -1,1 +1,2 @@
-"""Fault tolerance: the straggler policy the sweep engine uses."""
+"""Fault tolerance: the straggler policy the sweep engine uses, and the
+preemptible, checkpointing train loop."""

@@ -1,0 +1,682 @@
+// Causal / windowed / softcapped GQA flash attention, forward and backward:
+// the Hopper port of repro/kernels/flash_attention/kernel.py --
+//   flash_attention_pallas  (_flash_fwd_kernel)      -> fwd, kLse false;
+//   flash_attention_fwd_lse (_flash_fwd_kernel_lse)  -> fwd, kLse true;
+//   flash_attention_bwd     (_flash_bwd_dq_kernel,
+//                            _flash_bwd_dkv_kernel)  -> bwd_dq, bwd_dkv.
+//
+// Layout as the TPU kernels': q, o, do (B*H, Sq, D); k, v (B*Hkv, Sk, D);
+// lse, dsum (B*H, Sq) fp32.  Query head row bh = b*H + h reads kv row
+// b*Hkv + h/G (G = H/Hkv): GQA with no repeat of K/V.  Key j is visible to
+// query i iff (!causal || j <= i) && (window <= 0 || i - j < window).
+//
+// What each computes:
+//   fwd     o = softmax(mask(softcap(q k^T * D^-0.5))) v with online softmax
+//           in fp32 (m, l, acc); masked scores are -1e9, as in the TPU
+//           kernel, so results do not depend on the tiling; softcap is
+//           applied before the mask; p is rounded to v's type before PV;
+//           l is floored at 1e-30; o in q's type; with kLse also
+//           lse = m + log(l) in fp32 (what the backward needs).
+//   bwd_dq  dq = sum over keys of ds k * D^-0.5, with p = exp(s - lse),
+//           ds = p (do v^T - dsum), times (1 - tanh^2) under softcap: the
+//           algebra of _bwd_block.
+//   bwd_dkv dk = sum over query rows of ds^T q * D^-0.5, dv = p^T do, for
+//           one KV head: the block loops over the G query heads that share
+//           it and writes the group's sum directly (the TPU kernel writes
+//           per-query-head dk/dv and ops.py group-sums them in a second
+//           pass).  The plain version keeps the TPU kernel's per-head
+//           outputs; its group sum is what this kernel's output equals.
+//
+// Design for a CUDA grid (the TPU carries m/l/acc across a sequential grid
+// axis; here nothing carries between blocks):
+//   * fwd and bwd_dq: one block per (64-row query tile, b*H + h) that loops
+//     over the K/V tiles of the causal / window band itself; bwd_dkv: one
+//     block per (64-row key tile, b*Hkv + hk) that loops over the G heads
+//     and the query tiles of the band.  Tiles wholly outside the band are
+//     skipped by the TPU kernel's test (kernel.py:105-110).  Edges are
+//     bounds-checked (rows past Sq / Sk are zero and never stored; keys
+//     past Sk score -inf), so any Sq and Sk work, and any head dim up to
+//     256: D is padded with zeros to the next of 16, 32, 64, 128, 256 in
+//     shared memory (DM below).  At DM 256 the tiles are 32 rows, so the
+//     backward's four tiles fit in shared memory.
+//   * No atomics: every output element is written once, by the block that
+//     owns it, after a loop in a fixed order.  The backward is therefore
+//     deterministic, which is what makes a resumed training run equal an
+//     uninterrupted one on the card.
+//   * 128 threads: 16 x 8.  Thread (ty, tx) holds a (BQ/16) x (BK/8)
+//     micro-tile of the score tile, rows ty*RM.., columns tx + 8j; row
+//     reductions go over the 8 lanes of a row group with shuffles.  Tiles
+//     live in shared memory in fp32 with a padded row stride (DM + 1), so
+//     the dot loops read without bank conflicts.
+//
+// Bound on an H100: operations.  A tile pair costs 4*BQ*BK*D flops forward
+// (QK and PV) and 8*BQ*BK*D backward for about 2*BK*D*itemsize bytes of
+// K/V, far above the ~295 flop/byte ridge at granite-3-2b's D 64.  This
+// version is simple and right, not fast: the dots run as scalar fp32 FMA
+// from shared memory (67 TFLOP/s peak, not the tensor cores' 989 in bf16),
+// tiles are loaded element by element and not prefetched.  mma / wgmma
+// with TMA-fed double-buffered tiles are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;     // 16 x 8
+constexpr float kNegInf = -1e9f;  // masked score, as the TPU kernel
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Tiles by padded head dim: 64 rows, 32 at DM 256 (shared memory).
+template <int DM> struct Tile {
+  static constexpr int BQ = DM >= 256 ? 32 : 64;
+  static constexpr int BK = BQ;
+  static constexpr int DP = DM + 1;   // padded row stride in shared memory
+  static constexpr int RM = BQ / 16;  // score rows per thread
+  static constexpr int CN = BK / 8;   // score columns per thread
+  static constexpr int AD = DM / 8;   // accumulator columns per thread
+};
+
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// rows x DM tile of a (S, D) matrix starting at row r0 into shared memory
+// as fp32 times ``mul``; rows past S and columns past D are zero.
+template <int DM, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int rows, int S, int D,
+                                          float mul) {
+  constexpr int DP = DM + 1;
+  for (int idx = threadIdx.x; idx < rows * DM; idx += kThreads) {
+    const int r = idx / DM, d = idx % DM;
+    float x = 0.f;
+    if (r0 + r < S && d < D) x = to_f32(src[(size_t)(r0 + r) * D + d]) * mul;
+    dst[r * DP + d] = x;
+  }
+}
+
+// s[i][j] = sum_d A[ty*RM + i][d] * B[tx + 8j][d] (both tiles DP-strided).
+template <int DM, int RM, int CN>
+__device__ __forceinline__ void tile_dot(const float* A, const float* B,
+                                         int ty, int tx, float (&s)[RM][CN]) {
+  constexpr int DP = DM + 1;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DM; ++d) {
+    float a[RM], b[CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = A[(ty * RM + i) * DP + d];
+#pragma unroll
+    for (int j = 0; j < CN; ++j) b[j] = B[(tx + 8 * j) * DP + d];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+}
+
+__device__ __forceinline__ bool visible(int qi, int kj, int causal,
+                                        int window) {
+  return (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
+}
+
+// The band of key tiles a query tile [q0, q0 + BQ) reaches, as in
+// kernel.py:105-110: [*lo, *hi).
+__device__ __forceinline__ void key_band(int q0, int BQ, int BK, int Sk,
+                                         int causal, int window, int* lo,
+                                         int* hi) {
+  long long end = (Sk + BK - 1) / BK;
+  if (causal) end = min(end, (long long)(q0 + BQ - 1) / BK + 1);
+  long long beg = 0;
+  if (window > 0) {   // k0 + BK - 1 >= q0 - window + 1
+    const long long need = (long long)q0 - window + 2 - BK;
+    if (need > 0) beg = (need + BK - 1) / BK;
+  }
+  *lo = (int)beg;
+  *hi = (int)max(end, beg);
+}
+
+// The band of query tiles a key tile [k0, k0 + BK) is reached from.
+__device__ __forceinline__ void query_band(int k0, int BQ, int BK, int Sq,
+                                           int causal, int window, int* lo,
+                                           int* hi) {
+  long long end = (Sq + BQ - 1) / BQ;
+  long long beg = 0;
+  if (causal) {       // k0 <= q0 + BQ - 1
+    const long long need = (long long)k0 - BQ + 1;
+    if (need > 0) beg = (need + BQ - 1) / BQ;
+  }
+  if (window > 0)     // q0 <= k0 + BK + window - 2
+    end = min(end, ((long long)k0 + BK + window - 2) / BQ + 1);
+  *lo = (int)beg;
+  *hi = (int)max(end, beg);
+}
+
+template <typename T, int DM, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, int D,
+          int causal, int window, float scale, float softcap) {
+  using Tl = Tile<DM>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, DP = Tl::DP, RM = Tl::RM,
+                CN = Tl::CN, AD = Tl::AD;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const T* qb = q + (size_t)bh * Sq * D;
+  const T* kb = k + (size_t)kvrow * Sk * D;
+  const T* vb = v + (size_t)kvrow * Sk * D;
+
+  extern __shared__ float smem[];
+  float* sQ = smem;              // BQ x DP, q * scale
+  float* sK = sQ + BQ * DP;      // BK x DP
+  float* sV = sK + BK * DP;      // BK x DP
+  float* sP = sV + BK * DP;      // BQ x (BK + 1), p in v's type
+  load_tile<DM>(sQ, qb, q0, BQ, Sq, D, scale);
+
+  float m[RM], l[RM], acc[RM][AD];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int a = 0; a < AD; ++a) acc[i][a] = 0.f;
+  }
+  int lo, hi;
+  key_band(q0, BQ, BK, Sk, causal, window, &lo, &hi);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the last tile's sK, sV, sP are read
+    load_tile<DM>(sK, kb, k0, BK, Sk, D, 1.f);
+    load_tile<DM>(sV, vb, k0, BK, Sk, D, 1.f);
+    __syncthreads();
+    float s[RM][CN];
+    tile_dot<DM>(sQ, sK, ty, tx, s);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + ty * RM + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        const int kj = k0 + tx + 8 * j;
+        float x = s[i][j];
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        if (!visible(qi, kj, causal, window)) x = kNegInf;
+        if (kj >= Sk) x = -INFINITY;   // not a key at all
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        sP[(ty * RM + i) * (BK + 1) + tx + 8 * j] = to_f32(from_f32<T>(p));
+      }
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int a = 0; a < AD; ++a) acc[i][a] *= corr;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float p[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) p[i] = sP[(ty * RM + i) * (BK + 1) + c];
+#pragma unroll
+      for (int a = 0; a < AD; ++a) {
+        const float vv = sV[c * DP + tx + 8 * a];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) acc[i][a] = fmaf(p[i], vv, acc[i][a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty * RM + i;
+    if (qi >= Sq) continue;
+    const float ll = fmaxf(l[i], 1e-30f);
+    T* orow = o + ((size_t)bh * Sq + qi) * D;
+#pragma unroll
+    for (int a = 0; a < AD; ++a) {
+      const int d = tx + 8 * a;
+      if (d < D) orow[d] = from_f32<T>(acc[i][a] / ll);
+    }
+    if (kLse && tx == 0) lse[(size_t)bh * Sq + qi] = m[i] + logf(ll);
+  }
+}
+
+// p and ds of one (query tile, key tile) pair at thread (ty, tx)'s
+// micro-tile: the algebra of _bwd_block.  sQ holds q * scale, sDO do;
+// lse and dsum are the tile's rows.
+template <int DM, int RM, int CN>
+__device__ __forceinline__ void bwd_block(
+    const float* sQ, const float* sK, const float* sV, const float* sDO,
+    const float* sLse, const float* sDsum, int q0, int k0, int Sq, int Sk,
+    int causal, int window, float softcap, int ty, int tx,
+    float (&p)[RM][CN], float (&ds)[RM][CN]) {
+  float dp[RM][CN];
+  tile_dot<DM>(sQ, sK, ty, tx, p);     // raw scores
+  tile_dot<DM>(sDO, sV, ty, tx, dp);   // do v^T
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = ty * RM + i, qi = q0 + r;
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const int kj = k0 + tx + 8 * j;
+      float t = 0.f, used = p[i][j];
+      if (softcap > 0.f) {
+        t = tanhf(used / softcap);
+        used = t * softcap;
+      }
+      const bool ok = qi < Sq && kj < Sk && visible(qi, kj, causal, window);
+      const float pp = ok ? expf(used - sLse[r]) : 0.f;
+      float d = pp * (dp[i][j] - sDsum[r]);
+      if (softcap > 0.f) d *= 1.f - t * t;
+      p[i][j] = pp;
+      ds[i][j] = d;
+    }
+  }
+}
+
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ dsum,
+             T* __restrict__ dq, int H, int Hkv, int Sq, int Sk, int D,
+             int causal, int window, float scale, float softcap) {
+  using Tl = Tile<DM>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, DP = Tl::DP, RM = Tl::RM,
+                CN = Tl::CN, AD = Tl::AD;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)kvrow * Sk * D;
+
+  extern __shared__ float smem[];
+  float* sQ = smem;              // BQ x DP, q * scale
+  float* sDO = sQ + BQ * DP;     // BQ x DP
+  float* sK = sDO + BQ * DP;     // BK x DP
+  float* sV = sK + BK * DP;      // BK x DP
+  float* sDS = sV + BK * DP;     // BQ x (BK + 1)
+  float* sLse = sDS + BQ * (BK + 1);
+  float* sDsum = sLse + BQ;
+  load_tile<DM>(sQ, q + qoff, q0, BQ, Sq, D, scale);
+  load_tile<DM>(sDO, dout + qoff, q0, BQ, Sq, D, 1.f);
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    const bool in = q0 + r < Sq;
+    sLse[r] = in ? lse[(size_t)bh * Sq + q0 + r] : 0.f;
+    sDsum[r] = in ? dsum[(size_t)bh * Sq + q0 + r] : 0.f;
+  }
+  float acc[RM][AD];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int a = 0; a < AD; ++a) acc[i][a] = 0.f;
+  int lo, hi;
+  key_band(q0, BQ, BK, Sk, causal, window, &lo, &hi);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_tile<DM>(sK, k + koff, k0, BK, Sk, D, 1.f);
+    load_tile<DM>(sV, v + koff, k0, BK, Sk, D, 1.f);
+    __syncthreads();
+    float p[RM][CN], ds[RM][CN];
+    bwd_block<DM>(sQ, sK, sV, sDO, sLse, sDsum, q0, k0, Sq, Sk, causal,
+                  window, softcap, ty, tx, p, ds);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j)
+        sDS[(ty * RM + i) * (BK + 1) + tx + 8 * j] = ds[i][j];
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float d[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) d[i] = sDS[(ty * RM + i) * (BK + 1) + c];
+#pragma unroll
+      for (int a = 0; a < AD; ++a) {
+        const float kk = sK[c * DP + tx + 8 * a];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) acc[i][a] = fmaf(d[i], kk, acc[i][a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty * RM + i;
+    if (qi >= Sq) continue;
+    T* row = dq + qoff + (size_t)qi * D;
+#pragma unroll
+    for (int a = 0; a < AD; ++a) {
+      const int d = tx + 8 * a;
+      if (d < D) row[d] = from_f32<T>(acc[i][a] * scale);
+    }
+  }
+}
+
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dsum,
+              T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv,
+              int Sq, int Sk, int D, int causal, int window, float scale,
+              float softcap) {
+  using Tl = Tile<DM>;
+  constexpr int BQ = Tl::BQ, BK = Tl::BK, DP = Tl::DP, RM = Tl::RM,
+                CN = Tl::CN, AD = Tl::AD;
+  constexpr int RK = BK / 16;   // key rows of dk / dv per thread
+  const int kvrow = blockIdx.y, k0 = blockIdx.x * BK;
+  const int b = kvrow / Hkv, hk = kvrow % Hkv, G = H / Hkv;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const size_t koff = (size_t)kvrow * Sk * D;
+
+  extern __shared__ float smem[];
+  float* sK = smem;              // BK x DP
+  float* sV = sK + BK * DP;      // BK x DP
+  float* sQ = sV + BK * DP;      // BQ x DP, q * scale
+  float* sDO = sQ + BQ * DP;     // BQ x DP
+  float* sP = sDO + BQ * DP;     // BQ x (BK + 1)
+  float* sDS = sP + BQ * (BK + 1);
+  float* sLse = sDS + BQ * (BK + 1);
+  float* sDsum = sLse + BQ;
+  load_tile<DM>(sK, k + koff, k0, BK, Sk, D, 1.f);
+  load_tile<DM>(sV, v + koff, k0, BK, Sk, D, 1.f);
+
+  float dka[RK][AD], dva[RK][AD];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int a = 0; a < AD; ++a) dka[i][a] = dva[i][a] = 0.f;
+  int lo, hi;
+  query_band(k0, BQ, BK, Sq, causal, window, &lo, &hi);
+  for (int g = 0; g < G; ++g) {
+    const int bh = b * H + hk * G + g;
+    const size_t qoff = (size_t)bh * Sq * D;
+    for (int qt = lo; qt < hi; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();
+      load_tile<DM>(sQ, q + qoff, q0, BQ, Sq, D, scale);
+      load_tile<DM>(sDO, dout + qoff, q0, BQ, Sq, D, 1.f);
+      for (int r = threadIdx.x; r < BQ; r += kThreads) {
+        const bool in = q0 + r < Sq;
+        sLse[r] = in ? lse[(size_t)bh * Sq + q0 + r] : 0.f;
+        sDsum[r] = in ? dsum[(size_t)bh * Sq + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      float p[RM][CN], ds[RM][CN];
+      bwd_block<DM>(sQ, sK, sV, sDO, sLse, sDsum, q0, k0, Sq, Sk, causal,
+                    window, softcap, ty, tx, p, ds);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          const int at = (ty * RM + i) * (BK + 1) + tx + 8 * j;
+          sP[at] = p[i][j];
+          sDS[at] = ds[i][j];
+        }
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < BQ; ++r) {
+        float pr[RK], dr[RK];
+#pragma unroll
+        for (int i = 0; i < RK; ++i) {
+          pr[i] = sP[r * (BK + 1) + ty * RK + i];
+          dr[i] = sDS[r * (BK + 1) + ty * RK + i];
+        }
+#pragma unroll
+        for (int a = 0; a < AD; ++a) {
+          const float qq = sQ[r * DP + tx + 8 * a];
+          const float oo = sDO[r * DP + tx + 8 * a];
+#pragma unroll
+          for (int i = 0; i < RK; ++i) {
+            dva[i][a] = fmaf(pr[i], oo, dva[i][a]);
+            dka[i][a] = fmaf(dr[i], qq, dka[i][a]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RK; ++i) {
+    const int kj = k0 + ty * RK + i;
+    if (kj >= Sk) continue;
+    T* krow = dk + koff + (size_t)kj * D;
+    T* vrow = dv + koff + (size_t)kj * D;
+#pragma unroll
+    for (int a = 0; a < AD; ++a) {
+      const int d = tx + 8 * a;
+      if (d < D) {
+        krow[d] = from_f32<T>(dka[i][a]);   // q was scaled in sQ
+        vrow[d] = from_f32<T>(dva[i][a]);
+      }
+    }
+  }
+}
+
+template <int DM> size_t fwd_smem() {
+  using Tl = Tile<DM>;
+  return sizeof(float) * (size_t)((Tl::BQ + 2 * Tl::BK) * Tl::DP +
+                                  Tl::BQ * (Tl::BK + 1));
+}
+template <int DM> size_t dq_smem() {
+  using Tl = Tile<DM>;
+  return sizeof(float) * (size_t)((2 * Tl::BQ + 2 * Tl::BK) * Tl::DP +
+                                  Tl::BQ * (Tl::BK + 1) + 2 * Tl::BQ);
+}
+template <int DM> size_t dkv_smem() {
+  using Tl = Tile<DM>;
+  return sizeof(float) * (size_t)((2 * Tl::BQ + 2 * Tl::BK) * Tl::DP +
+                                  2 * Tl::BQ * (Tl::BK + 1) + 2 * Tl::BQ);
+}
+
+// Raise the kernel's dynamic shared memory cap once per instantiation.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t* set) {
+  if (bytes <= *set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *set = bytes;
+  return err;
+}
+
+template <typename T, int DM>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
+                void* lse, int BH, int H, int Hkv, int Sq, int Sk, int D,
+                int causal, int window, float scale, float softcap,
+                cudaStream_t stream) {
+  const size_t smem = fwd_smem<DM>();
+  const dim3 grid((Sq + Tile<DM>::BQ - 1) / Tile<DM>::BQ, BH);
+  cudaError_t err;
+  if (lse != nullptr) {
+    static size_t set = 48 * 1024;
+    err = allow_smem(flash_fwd<T, DM, true>, smem, &set);
+    if (err != cudaSuccess) return err;
+    flash_fwd<T, DM, true><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o),
+        static_cast<float*>(lse), H, Hkv, Sq, Sk, D, causal, window, scale,
+        softcap);
+  } else {
+    static size_t set = 48 * 1024;
+    err = allow_smem(flash_fwd<T, DM, false>, smem, &set);
+    if (err != cudaSuccess) return err;
+    flash_fwd<T, DM, false><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), nullptr, H, Hkv, Sq,
+        Sk, D, causal, window, scale, softcap);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int DM>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* dsum,
+                   void* dq, int BH, int H, int Hkv, int Sq, int Sk, int D,
+                   int causal, int window, float scale, float softcap,
+                   cudaStream_t stream) {
+  static size_t set = 48 * 1024;
+  const cudaError_t err = allow_smem(flash_bwd_dq<T, DM>, dq_smem<DM>(),
+                                     &set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + Tile<DM>::BQ - 1) / Tile<DM>::BQ, BH);
+  flash_bwd_dq<T, DM><<<grid, kThreads, dq_smem<DM>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<T*>(dq), H, Hkv, Sq, Sk, D, causal, window, scale,
+      softcap);
+  return cudaGetLastError();
+}
+
+template <typename T, int DM>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* dsum,
+                    void* dk, void* dv, int BH, int H, int Hkv, int Sq,
+                    int Sk, int D, int causal, int window, float scale,
+                    float softcap, cudaStream_t stream) {
+  static size_t set = 48 * 1024;
+  const cudaError_t err = allow_smem(flash_bwd_dkv<T, DM>, dkv_smem<DM>(),
+                                     &set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sk + Tile<DM>::BK - 1) / Tile<DM>::BK, BH / H * Hkv);
+  flash_bwd_dkv<T, DM><<<grid, kThreads, dkv_smem<DM>(), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, D, causal,
+      window, scale, softcap);
+  return cudaGetLastError();
+}
+
+#define FWD_ARGS                                                         \
+  q, k, v, o, lse, BH, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, \
+      stream
+#define DQ_ARGS                                                          \
+  q, k, v, dout, lse, dsum, dq, BH, H, Hkv, Sq, Sk, D, causal, window,    \
+      scale, softcap, stream
+#define DKV_ARGS                                                         \
+  q, k, v, dout, lse, dsum, dk, dv, BH, H, Hkv, Sq, Sk, D, causal,        \
+      window, scale, softcap, stream
+
+template <typename T>
+cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int BH, int H, int Hkv, int Sq, int Sk, int D,
+                  int causal, int window, float scale, float softcap,
+                  cudaStream_t stream) {
+  if (D <= 16) return fwd<T, 16>(FWD_ARGS);
+  if (D <= 32) return fwd<T, 32>(FWD_ARGS);
+  if (D <= 64) return fwd<T, 64>(FWD_ARGS);
+  if (D <= 128) return fwd<T, 128>(FWD_ARGS);
+  if (D <= 256) return fwd<T, 256>(FWD_ARGS);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dq_d(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* dsum,
+                 void* dq, int BH, int H, int Hkv, int Sq, int Sk, int D,
+                 int causal, int window, float scale, float softcap,
+                 cudaStream_t stream) {
+  if (D <= 16) return bwd_dq<T, 16>(DQ_ARGS);
+  if (D <= 32) return bwd_dq<T, 32>(DQ_ARGS);
+  if (D <= 64) return bwd_dq<T, 64>(DQ_ARGS);
+  if (D <= 128) return bwd_dq<T, 128>(DQ_ARGS);
+  if (D <= 256) return bwd_dq<T, 256>(DQ_ARGS);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dkv_d(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* dsum,
+                  void* dk, void* dv, int BH, int H, int Hkv, int Sq,
+                  int Sk, int D, int causal, int window, float scale,
+                  float softcap, cudaStream_t stream) {
+  if (D <= 16) return bwd_dkv<T, 16>(DKV_ARGS);
+  if (D <= 32) return bwd_dkv<T, 32>(DKV_ARGS);
+  if (D <= 64) return bwd_dkv<T, 64>(DKV_ARGS);
+  if (D <= 128) return bwd_dkv<T, 128>(DKV_ARGS);
+  if (D <= 256) return bwd_dkv<T, 256>(DKV_ARGS);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype (of q, k, v, o, do, dq, dk, dv): 0 = float32, 1 = bfloat16.  The
+// forward writes lse when ``lse`` is not null (flash_attention_fwd_lse)
+// and skips it otherwise (flash_attention_pallas).  window <= 0: no
+// window.  The backward is two launches: dq (B*H, Sq, D), and dk, dv per
+// KV head (B*Hkv, Sk, D).  Each returns cudaGetLastError() after its
+// launch (0 on success); the Python wrapper raises on anything else.
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int BH, int H, int Hkv,
+                                int Sq, int Sk, int D, int causal,
+                                int window, float scale, float softcap,
+                                int dtype, void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (dtype == 0) return (int)fwd_d<float>(FWD_ARGS);
+  if (dtype == 1) return (int)fwd_d<__nv_bfloat16>(FWD_ARGS);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* dsum,
+                                   void* dq, int BH, int H, int Hkv, int Sq,
+                                   int Sk, int D, int causal, int window,
+                                   float scale, float softcap, int dtype,
+                                   void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (dtype == 0) return (int)dq_d<float>(DQ_ARGS);
+  if (dtype == 1) return (int)dq_d<__nv_bfloat16>(DQ_ARGS);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* dsum,
+                                    void* dk, void* dv, int BH, int H,
+                                    int Hkv, int Sq, int Sk, int D,
+                                    int causal, int window, float scale,
+                                    float softcap, int dtype,
+                                    void* stream_ptr) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (dtype == 0) return (int)dkv_d<float>(DKV_ARGS);
+  if (dtype == 1) return (int)dkv_d<__nv_bfloat16>(DKV_ARGS);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -4,9 +4,11 @@ embeddings.  The counterpart of ``repro/models/layers.py``.
 Parameters are plain dicts of tensors with the JAX package's tree and
 layout: weights are ``(in, out)`` and layers compute ``x @ W``.  Stacked
 layer weights carry a leading ``L`` axis (``models/transformer.py``).
-Matrices are stored in the compute dtype (``cfg.dtype``); the JAX package
-keeps fp32 masters and casts them to that dtype at every use, which gives
-the same values.  Norm scales stay fp32, as the norm computes in fp32.
+For serving, matrices are stored in the compute dtype (``cfg.dtype``):
+the JAX package keeps fp32 masters and casts them to that dtype at every
+use, which gives the same values.  For training they are fp32 masters
+(the init functions' ``dtype``, ``cfg.param_dtype``), cast at every use as
+in the JAX package.  Norm scales stay fp32, as the norm computes in fp32.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 Params = Dict[str, Any]
 
@@ -96,13 +100,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # Attention
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg, gen: torch.Generator, n_layers: int,
-                   device) -> Params:
+def init_attention(cfg, gen: torch.Generator, n_layers: int, device,
+                   dtype: Optional[torch.dtype] = None) -> Params:
+    """``dtype``: of the matrices, the compute dtype by default."""
     d = cfg.d_model
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     L = (n_layers,) if n_layers else ()
     std = d ** -0.5
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     return {
         "wq": _normal(gen, L + (d, h * hd), std, dt, device),
         "wk": _normal(gen, L + (d, hkv * hd), std, dt, device),
@@ -179,7 +184,10 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *,
 
     cache: {"k": (B, S, Hkv, D), "v": ...}, written IN PLACE at
     ``cache_index`` (the JAX package returns an updated copy).  Returns
-    (output, cache).
+    (output, cache).  Without a cache, ``cfg.use_pallas_attention`` on the
+    unrolled stack (``scan_layers=False``, the JAX package's condition for
+    its kernel) selects the flash-attention op, whose backend follows the
+    tensors' device; anything else runs the chunked attention.
     """
     B, Sq, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -211,6 +219,10 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *,
         prob = torch.softmax(s, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", prob.to(vexp.dtype).float(),
                            vexp.float()).to(q.dtype)
+    elif cfg.use_pallas_attention and not cfg.scan_layers:
+        win = 0 if window is None or window >= (1 << 30) else window
+        out = fa_ops.attention_trainable(q, k, v, causal=causal, window=win,
+                                         softcap=softcap)
     else:
         out = _chunked_attention(
             q, k, v, causal=causal,
@@ -224,10 +236,11 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *,
 # MLPs
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg, gen: torch.Generator, n_layers: int, device) -> Params:
+def init_mlp(cfg, gen: torch.Generator, n_layers: int, device,
+             dtype: Optional[torch.dtype] = None) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     L = (n_layers,) if n_layers else ()
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     p = {}
     if cfg.act in ("swiglu", "geglu"):
         p["wg"] = _normal(gen, L + (d, f), d ** -0.5, dt, device)
@@ -260,10 +273,11 @@ def padded_vocab(vocab: int, multiple: int = 256) -> int:
     return (vocab + multiple - 1) // multiple * multiple
 
 
-def init_embed(cfg, gen: torch.Generator, device) -> Params:
+def init_embed(cfg, gen: torch.Generator, device,
+               dtype: Optional[torch.dtype] = None) -> Params:
     V = padded_vocab(cfg.vocab)
-    return {"table": _normal(gen, (V, cfg.d_model), 1.0, compute_dtype(cfg),
-                             device)}
+    return {"table": _normal(gen, (V, cfg.d_model), 1.0,
+                             dtype or compute_dtype(cfg), device)}
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:

@@ -3,6 +3,8 @@ prefill and decode.  The counterpart of ``repro/models/model.py``.
 
     init_params(cfg, seed, device)        -> params (nested dict of tensors)
     forward(cfg, params, batch)           -> final hidden states (B, S, d)
+    chunked_xent(cfg, params, hidden, labels) -> (sum nll, token count)
+    loss_fn(cfg, params, batch)           -> (loss, metrics)
     init_cache(cfg, batch, seq, device)   -> stacked dense decode cache
     prefill_cached(cfg, params, batch, cache) -> (hidden (B, S, d), cache)
     decode_step(cfg, params, cache, tokens, pos) -> (logits (B, 1, V), cache)
@@ -11,9 +13,10 @@ Caches are updated in place; the JAX package returns updated copies.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import (_normal, apply_norm, compute_dtype,
@@ -25,21 +28,25 @@ from repro_torch.models.transformer import (apply_stack, check_dense,
 Params = Dict[str, Any]
 
 
-def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> Params:
+def init_params(cfg, seed: int = 0, device: DeviceLike = None,
+                param_dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights with the JAX package's tree, shapes and init scales,
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (the two frameworks draw different numbers from the same seed: tests
-    that need identical weights go through ``repro_torch.weights``)."""
+    that need identical weights go through ``repro_torch.weights``).
+    Matrices are in ``param_dtype``: the compute dtype by default (serving),
+    fp32 masters for training; both round the same fp32 draws."""
     check_dense(cfg)
     dev = resolve_device(device)
+    dt = param_dtype or compute_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    p: Params = {"embed": init_embed(cfg, gen, dev)}
-    p["layers"] = init_stack(cfg, gen, cfg.n_layers, dev)
+    p: Params = {"embed": init_embed(cfg, gen, dev, dt)}
+    p["layers"] = init_stack(cfg, gen, cfg.n_layers, dev, dt)
     p["final_ln"] = init_norm(cfg, (cfg.d_model,), dev)
     if not cfg.tie_embeddings:
         p["lm_head"] = {"kernel": _normal(
             gen, (cfg.d_model, padded_vocab(cfg.vocab)), cfg.d_model ** -0.5,
-            compute_dtype(cfg), dev)}
+            dt, dev)}
     return p
 
 
@@ -62,6 +69,54 @@ def forward(cfg, params: Params, batch: Dict[str, torch.Tensor]
     x, _ = apply_stack(params["layers"], x, cfg, positions=positions,
                        windows=layer_windows(cfg))
     return apply_norm(params["final_ln"], x)
+
+
+def chunked_xent(cfg, params: Params, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 1024
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hidden: (B, S, d); labels: (B, S) with -1 = ignore.
+
+    Returns (sum_loss, sum_count).  Over S-chunks, each under
+    ``torch.utils.checkpoint`` (the JAX package's ``@jax.checkpoint``), so
+    the (B, chunk, V) fp32 logits are never held for the backward.
+    """
+    S = hidden.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+
+    def chunk_nll(hblk, yblk):
+        logits = logits_from_hidden(params, hblk, cfg).float()
+        mask = yblk >= 0
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(yblk, min=0)[..., None])[..., 0]
+        return torch.where(mask, logz - gold, 0.0).sum(), mask.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for s0 in range(0, S, c):
+        args = (hidden[:, s0:s0 + c], labels[:, s0:s0 + c])
+        if torch.is_grad_enabled():
+            nll, m = ckpt.checkpoint(chunk_nll, *args, use_reentrant=False)
+        else:
+            nll, m = chunk_nll(*args)
+        tot = tot + nll
+        cnt = cnt + m
+    return tot, cnt
+
+
+def loss_fn(cfg, params: Params, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Mean next-token cross-entropy over labels >= 0 (the dense family
+    has no auxiliary loss).  Returns (loss, {"loss", "xent", "aux",
+    "tokens"})."""
+    hidden = forward(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot, cnt = chunked_xent(cfg, params, hidden, batch["labels"])
+    xent = tot / torch.clamp(cnt.float(), min=1.0)
+    loss = xent + aux_weight * aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": cnt}
 
 
 def init_cache(cfg, batch: int, seq: int, device: DeviceLike = None,

@@ -4,13 +4,23 @@ loop over layers.  The counterpart of ``repro/models/transformer.py``.
 Layer weights keep the JAX package's stacked ``(L, ...)`` layout; the loop
 takes the ``i``-th slice of each (a view) where JAX scans over them.
 MoE, RWKV, hybrid-SSM and cross-attention layers come in later slices.
+
+``cfg.remat`` is the JAX package's rematerialisation policy, applied to
+each layer body when a gradient is being recorded: ``"full"`` keeps only
+the layer's input and recomputes the rest in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint``); ``"dots"`` also keeps
+the outputs of the matrix products that have no batch dimensions, the
+layer's ``x @ W`` (a selective checkpoint, as
+``checkpoint_dots_with_no_batch_dims``); ``"none"`` keeps everything.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models.layers import (apply_attention, apply_mlp,
                                        apply_norm, init_attention, init_mlp,
@@ -46,18 +56,45 @@ def layer_windows(cfg) -> np.ndarray:
     return w
 
 
-def init_stack(cfg, gen: torch.Generator, n_layers: int, device) -> Params:
+def init_stack(cfg, gen: torch.Generator, n_layers: int, device,
+               dtype: Optional[torch.dtype] = None) -> Params:
+    """``dtype``: of the matrices, the compute dtype by default."""
     check_dense(cfg)
     return {"ln1": init_norm(cfg, (n_layers, cfg.d_model), device),
             "ln2": init_norm(cfg, (n_layers, cfg.d_model), device),
-            "attn": init_attention(cfg, gen, n_layers, device),
-            "mlp": init_mlp(cfg, gen, n_layers, device)}
+            "attn": init_attention(cfg, gen, n_layers, device, dtype),
+            "mlp": init_mlp(cfg, gen, n_layers, device, dtype)}
 
 
-def layer_params(p: Params, i: int) -> Params:
-    """Layer ``i``'s slice of a stacked parameter tree (views, no copy)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+def unstack(p: Params, n: int) -> List[Params]:
+    """The ``n`` layers' parameter trees of a stacked tree: one
+    ``torch.unbind`` per leaf (views), so a backward stacks each leaf's
+    gradient once instead of adding ``n`` full-size ones."""
+    cols = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
             for k, v in p.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the 2-D matrix products (``x @ W``),
+    recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, cfg) -> Callable:
+    """``fn`` under ``cfg.remat`` (see the module docstring)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
 def layer_body(lp: Params, x: torch.Tensor, cfg, *,
@@ -80,11 +117,17 @@ def apply_stack(p: Params, x: torch.Tensor, cfg, *,
                 cache_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run every layer in order.  ``caches`` is the stacked (L, ...) dense
-    cache, updated in place.  Returns (x, caches)."""
-    for i in range(len(windows)):
-        cache_l = (None if caches is None else
-                   {"k": caches["kv"]["k"][i], "v": caches["kv"]["v"][i]})
-        x = layer_body(layer_params(p, i), x, cfg, positions=positions,
-                       window=int(windows[i]), causal=causal,
-                       cache=cache_l, cache_index=cache_index)
+    cache, updated in place.  Without caches, while a gradient is being
+    recorded, each layer runs under ``cfg.remat``.  Returns (x, caches)."""
+    for i, lp in enumerate(unstack(p, len(windows))):
+        kw = dict(positions=positions, window=int(windows[i]), causal=causal)
+        if caches is not None:
+            cache_l = {"k": caches["kv"]["k"][i], "v": caches["kv"]["v"][i]}
+            x = layer_body(lp, x, cfg, cache=cache_l,
+                           cache_index=cache_index, **kw)
+        elif torch.is_grad_enabled():
+            x = remat(functools.partial(layer_body, lp, cfg=cfg, **kw),
+                      cfg)(x)
+        else:
+            x = layer_body(lp, x, cfg, **kw)
     return x, caches

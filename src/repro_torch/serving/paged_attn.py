@@ -35,7 +35,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        compute_dtype, embed_tokens,
                                        logits_from_hidden)
-from repro_torch.models.transformer import layer_params, layer_windows
+from repro_torch.models.transformer import layer_windows, unstack
 
 Params = Dict[str, Any]
 
@@ -145,8 +145,8 @@ def _stack(cfg, params: Params, cache: Params, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens, cfg)
     windows = layer_windows(cfg)
     quant = "k_scale" in cache
-    for i in range(cfg.n_layers):
-        x = _paged_layer(layer_params(params["layers"], i), x, cfg,
+    for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x = _paged_layer(lp, x, cfg,
                          positions=positions, window=int(windows[i]),
                          k_pool=cache["k"][i], v_pool=cache["v"][i],
                          block_tables=block_tables,

@@ -3,8 +3,9 @@
 The port keeps the JAX layout unchanged, so the bridge moves arrays and
 transposes nothing: weight matrices stay ``(in, out)`` (``x @ W``), and
 layer weights stay stacked on a leading ``L`` axis (the port slices layer
-``i`` where JAX scans).  Matrices land in the compute dtype, norm scales
-and biases in fp32 (see ``models/layers.py``).
+``i`` where JAX scans).  Matrices land in the compute dtype for serving, or
+in ``param_dtype`` (fp32 masters for training); norm scales and biases in
+fp32 (see ``models/layers.py``).
 
 Only the tests build a tree with JAX (``jax.tree.map(np.asarray,
 repro.models.model.init_params(cfg, key))``) and hand it over; the port
@@ -13,7 +14,7 @@ seeded ``models.model.init_params``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -25,12 +26,14 @@ from repro_torch.models.transformer import check_dense
 _FP32_LEAVES = ("scale", "bias")
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg,
-                      device: DeviceLike = None) -> Dict[str, Any]:
-    """Convert a nested dict of numpy arrays into the port's parameters."""
+def params_from_numpy(tree: Dict[str, Any], cfg, device: DeviceLike = None,
+                      param_dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, Any]:
+    """Convert a nested dict of numpy arrays into the port's parameters:
+    matrices in ``param_dtype`` (the compute dtype by default)."""
     check_dense(cfg)
     dev = resolve_device(device)
-    dt = compute_dtype(cfg)
+    dt = param_dtype or compute_dtype(cfg)
 
     def conv(node, name):
         if isinstance(node, dict):

@@ -405,3 +405,114 @@ def test_cuda_fitness_counts_launches(cuda_device):
     before = kernel.launches
     ops.basis_risk(il, target, w, att, limit, 30.0)
     assert kernel.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: forward (with and without lse), dq and dk/dv kernels
+# ---------------------------------------------------------------------------
+
+# the worst row's ||kernel - plain|| / ||plain|| (``_row_err``).  fp32:
+# summation order.  bf16:
+# outputs rounded to bf16 (ulp 2^-8 relative); the forward's p is rounded
+# at another running max, the plain backward rounds per-head dk/dv to
+# bf16 before the group sum, the kernel once after it.
+FLASH_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (B, S, H, Hkv, D, causal, window, softcap): granite-3-2b's heads, gemma
+# MQA at D 256, D 128 with a ragged S, the launcher's reduced D 40, and
+# the masks
+FLASH_CASES = [(2, 160, 32, 8, 64, True, 0, 0.0),
+               (1, 96, 8, 1, 256, True, 32, 30.0),
+               (1, 200, 4, 2, 128, False, 0, 0.0),
+               (2, 130, 4, 2, 40, True, 0, 30.0)]
+
+
+def flash_case(dev, dtype, B, S, H, Hkv, D, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda rows: torch.randn(rows, S, D, generator=g).to(  # noqa: E731
+        dev, dtype)
+    return mk(B * H), mk(B * Hkv), mk(B * Hkv), mk(B * H)
+
+
+def _row_err(got, want):
+    """The worst row's ||got - want|| / ||want|| over the last axis (a
+    query's o or dq, a key's dk or dv), a row below a tenth of the median
+    row's norm held to that tenth (dq of a query that sees one key is
+    zero up to rounding)."""
+    err = torch.linalg.vector_norm(got.float() - want.float(), dim=-1)
+    norm = torch.linalg.vector_norm(want.float(), dim=-1)
+    return (err / torch.clamp(norm, min=0.1 * norm.median())).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,softcap", FLASH_CASES)
+def test_cuda_flash_forward_matches_plain(cuda_device, B, S, H, Hkv, D,
+                                          causal, window, softcap, dtype):
+    """o (both forwards) within FLASH_RTOL of the plain version, lse
+    within 1e-5 of its largest value;
+    the causal mask dropped lands outside it."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    q, k, v, _ = flash_case(cuda_device, dtype, B, S, H, Hkv, D)
+    opts = dict(n_q_heads=H, causal=causal, window=window, softcap=softcap)
+    o, lse = kernel.flash_fwd(q, k, v, with_lse=True, **opts)
+    o2 = kernel.flash_fwd(q, k, v, **opts)
+    po, plse = ref.flash_fwd(q, k, v, with_lse=True, **opts)
+    torch.cuda.synchronize()
+    tol = FLASH_RTOL[dtype]
+    assert torch.equal(o, o2) and o.dtype == dtype
+    assert _row_err(o, po) <= tol
+    assert (lse - plse).abs().max() <= 1e-5 * plse.abs().max()
+    wrong = ref.flash_fwd(q, k, v, **dict(opts, causal=not causal))
+    assert _row_err(wrong, po) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,softcap", FLASH_CASES)
+def test_cuda_flash_backward_matches_plain(cuda_device, B, S, H, Hkv, D,
+                                           causal, window, softcap, dtype):
+    """dq, and dk, dv per KV head, within FLASH_RTOL of the plain backward
+    followed by its group sum, from the same lse and dsum; bit-equal
+    across calls (no atomics).  dk not group-summed lands outside it."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    q, k, v, do = flash_case(cuda_device, dtype, B, S, H, Hkv, D, seed=1)
+    opts = dict(n_q_heads=H, causal=causal, window=window, softcap=softcap)
+    o, lse = ref.flash_fwd(q, k, v, with_lse=True, **opts)
+    dsum = (do.float() * o.float()).sum(-1)
+    got = kernel.flash_bwd(q, k, v, do, lse, dsum, **opts)
+    again = kernel.flash_bwd(q, k, v, do, lse, dsum, **opts)
+    dq, dk_h, dv_h = ref.flash_bwd(q, k, v, do, lse, dsum, **opts)
+    want = (dq, ref.group_sum(dk_h, H, k.shape[0]),
+            ref.group_sum(dv_h, H, k.shape[0]))
+    torch.cuda.synchronize()
+    tol = FLASH_RTOL[dtype]
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        assert _row_err(a, b) <= tol, name
+        assert torch.equal(a, c), name
+    if H > Hkv:
+        one_head = dk_h.reshape(B, Hkv, H // Hkv, S, D)[:, :, 0]
+        assert _row_err(one_head.reshape(B * Hkv, S, D), want[1]) > tol
+
+
+def test_cuda_flash_trainable_and_counts(cuda_device):
+    """attention_trainable on the card: one forward-with-lse launch, one
+    dq and one dk/dv launch per backward, none without a gradient; grads
+    match autograd through the plain forward."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    B, S, H, Hkv, D = 2, 100, 8, 2, 64
+    g = torch.Generator().manual_seed(2)
+    x = [torch.randn(B, S, h, D, generator=g).to(cuda_device)
+         for h in (H, Hkv, Hkv)]
+    before = (kernel.fwd_launches, kernel.fwd_lse_launches,
+              kernel.dq_launches, kernel.dkv_launches)
+    with torch.no_grad():
+        ops.attention_trainable(*x, window=24)
+    ts = [t.clone().requires_grad_(True) for t in x]
+    torch.sin(ops.attention_trainable(*ts, window=24)).sum().backward()
+    after = (kernel.fwd_launches, kernel.fwd_lse_launches,
+             kernel.dq_launches, kernel.dkv_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+    rs = [t.clone().requires_grad_(True) for t in x]
+    torch.sin(ref.attention(*rs, window=24)).sum().backward()
+    torch.cuda.synchronize()
+    for a, b in zip(ts, rs):
+        assert _row_err(a.grad, b.grad) <= 1e-4
