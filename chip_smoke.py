@@ -108,8 +108,32 @@ Phases, each raising on failure:
      causal), their plain versions and SDPA (forward, and its backward
      alone), beside the bound.
 
-Phases run in the order 1-6b, 10-12, 7-9, so the training state is freed
-before the CATopt phases.
+  13. the RWKV-6 wkv kernel against its plain version (the exact scan),
+     r, k, v fp32 and bf16: the JAX test's four shapes; layer 0's r, k,
+     v, w of full-width rwkv6-1.6b at B 1 x S 32768 with a drawn bonus u
+     (the model's is zero); w drawn in [0.999, 0.9999], so the state
+     carries across thousands of tokens.  Each row (one token's output of
+     one head) within ``WKV_TOL`` relative, below what known-wrong kernels
+     give (the bonus dropped; the state reset at the middle chunk
+     boundary; the decay skipped on one late token; k v^T transposed);
+  14. rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
+     7168, vocab 65536, bf16, seed 0, ``use_pallas_wkv``):
+     ``make_prefill_step`` at B 1 x S 32768 (``PREFILL_32K``'s length, its
+     batch cut from 32 to 1) with exactly 24 wkv launches a call, and its
+     breakdown under ``torch.profiler``; at S 2048 the model on the kernel
+     against the plain path (last and worst hidden row) within
+     ``TF_RATIO`` times the plain bf16 path's distance from fp32;
+     teacher-forced ``decode_step`` logits against the kernel forward;
+     the decode state's bytes equal after a 64- and a 2048-token prompt;
+     4 greedy streams (prompt 512, generate 32) through
+     ``launch/serve.main --engine batch``; peak device memory;
+  15. device time per call of the wkv kernel (CUDA events behind a queued
+     sleep) at B 1 x S 32768 and B 8 x S 2048 (H 32, D 64, the model's
+     types), its plain version once at S 32768, beside the bound; no
+     PyTorch call computes the recurrence, so no library time.
+
+Phases run in the order 1-6b, 10-12, 7-9, 13-15, so the training state is
+freed before the CATopt phases.
 
 The last two lines are the kernel report (JSON) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -178,6 +202,16 @@ LOSS_RTOL = 1e-2
 GRAD_RATIO = 2.0
 BLAS_KERNELS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 SLEEP_CYCLES = 100_000_000    # phase 12: about 50 ms of a queued sleep
+WKV_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
+WKV_REPLACES = "src/repro/kernels/wkv6/kernel.py:54"
+# phase 13, the worst row's ||kernel - plain|| / ||plain|| (a row: one
+# token's output of one head).  fp32: sums over D in another order.  bf16:
+# the kernel rounds its output to bf16, up to 2^-8 of each value, against
+# the plain version's fp32 output from the same inputs.  Phase 13 prints
+# what known-wrong kernels give beside it.
+WKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+RWKV_SEQ = 32768         # phases 13 to 15: PREFILL_32K's length, batch 1
+RWKV_STEPS = 3           # phase 14: timed prefill calls after a warm one
 
 
 def log(*a):
@@ -1979,6 +2013,321 @@ def phase_fitness_timing(torch, dev, problem):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 13 to 15: rwkv6-1.6b and the wkv kernel
+# ---------------------------------------------------------------------------
+
+def rwkv_model(torch, dev):
+    """rwkv6-1.6b at full width (bf16, seed 0, ``use_pallas_wkv``) and B 1 x
+    S ``RWKV_SEQ`` uniform random tokens."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), use_pallas_wkv=True)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    sync(torch, dev)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, RWKV_SEQ), generator=g).to(dev)
+    log(f"[rwkv] {cfg.name}: {M.count_params(cfg) / 1e9:.3f} B parameters "
+        f"({cfg.dtype} matrices, fp32 norms, mu, decay and bonus) in "
+        f"{time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}")
+    return cfg, params, toks
+
+
+def layer0_inputs(torch, cfg, params, toks):
+    """Layer 0's r, k, v (bf16) and w (fp32) on ``toks``, as the model
+    computes them, and a bonus u drawn normal x 0.1: the model's own u is
+    zero, which would hide a wrong bonus term."""
+    from repro_torch.models import rwkv6
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    from repro_torch.models.transformer import unstack
+    lp = unstack(params["layers"], cfg.n_layers)[0]
+    with torch.no_grad():
+        x = apply_norm(lp["ln1"], embed_tokens(params["embed"], toks, cfg))
+        r, k, v, w, _ = rwkv6.time_mix_inputs(lp["rwkv"]["tm"], x, cfg)
+    g = torch.Generator().manual_seed(2)
+    u = (torch.randn(cfg.n_heads, cfg.head_dim, generator=g) * 0.1).to(
+        toks.device)
+    return r, k, v, w, u
+
+
+def wkv_wrong(torch, r, k, v, w, u, only=None):
+    """Known-wrong kernels as plain algebra, each subtle at late tokens:
+    {label: output}, or only the one labelled ``only``.  The bonus u
+    dropped; the state reset at the middle 128-token chunk boundary (the
+    TPU kernel's chunk); the decay skipped on one token 64 from the end;
+    k v^T transposed in the update (the plain scan with k and v swapped,
+    its bonus term put right)."""
+    from repro_torch.kernels.wkv6 import ref
+    S = r.shape[1]
+    mid, late = 128 * (S // 128 // 2), S - 64
+
+    def bonus(a):
+        return (r.float() * (u.float() * a.float())).sum(-1, keepdim=True)
+
+    def skipped():
+        w_skip = w.clone()
+        w_skip[:, late] = 1.0
+        return ref.wkv(r, k, v, w_skip, u)
+
+    readings = {
+        "bonus u dropped": lambda: ref.wkv(r, k, v, w, torch.zeros_like(u)),
+        f"state reset at token {mid}": lambda: torch.cat(
+            [ref.wkv(r[:, :mid], k[:, :mid], v[:, :mid], w[:, :mid], u),
+             ref.wkv(r[:, mid:], k[:, mid:], v[:, mid:], w[:, mid:], u)], 1),
+        f"decay skipped at token {late}": skipped,
+        "k v^T transposed": lambda: ref.wkv(r, v, k, w, u)
+        - bonus(v) * k.float() + bonus(k) * v.float()}
+    return {name: fn() for name, fn in readings.items()
+            if only is None or name == only}
+
+
+def phase_wkv_vs_plain(torch, dev, real):
+    """The wkv kernel against its plain version on the card, row by row
+    (a row: one token's output of one head), fp32 and bf16 r, k, v: the
+    JAX test's four shapes; layer 0's real inputs at B 1 x S ``RWKV_SEQ``
+    (w fp32, as the model gives it), with known-wrong readings beside the
+    limit; w drawn near 1 at the same length, so the state carries across
+    thousands of tokens.  Returns (worst max |kernel - plain|, worst row
+    error)."""
+    from repro_torch.kernels.wkv6 import kernel, ref
+    worst_abs, worst_row = 0.0, 0.0
+
+    def check(label, ins, want, wrong=None):
+        nonlocal worst_abs, worst_row
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            x = [t.to(dtype) for t in ins[:3]] + list(ins[3:])
+            got = kernel.wkv6(*x)
+            sync(torch, dev)
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"wkv {label} {dt}: {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            err = row_err(torch, got, want)
+            mx = (got.float() - want).abs().max().item()
+            worst_abs, worst_row = max(worst_abs, mx), max(worst_row, err)
+            judge(f"wkv {label} {dt} (w {x[3].dtype})", err, WKV_TOL[dt],
+                  {k: row_err(torch, o, want) for k, o in
+                   (wrong or {}).items()}, f", max|kernel - plain| {mx:.3g}",
+                  what=ROW_ERR)
+
+    g = torch.Generator().manual_seed(3)
+    for B, S, H, D in ((2, 64, 4, 16), (1, 96, 2, 32), (2, 128, 3, 64),
+                       (1, 64, 1, 128)):
+        r, k, v = (torch.randn(B, S, H, D, generator=g).to(dev)
+                   for _ in range(3))
+        w = torch.sigmoid(torch.randn(B, S, H, D, generator=g)).to(dev)
+        u = (torch.randn(H, D, generator=g) * 0.1).to(dev)
+        # the same bf16-representable values in both dtypes: one plain run
+        r, k, v = (t.bfloat16().float() for t in (r, k, v))
+        check(f"B {B} S {S} H {H} D {D}", (r, k, v, w, u),
+              ref.wkv(r, k, v, w, u),
+              {"bonus u dropped": ref.wkv(r, k, v, w, torch.zeros_like(u))})
+    r, k, v, w, u = real
+    B, S, H, D = r.shape
+    want = ref.wkv(r, k, v, w, u)
+    check(f"layer 0 of rwkv6-1.6b B {B} S {S} H {H} D {D}",
+          (r, k, v, w, u), want, wkv_wrong(torch, r, k, v, w, u))
+    del want
+    r, k, v = (torch.randn(B, S, H, D, generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    w = (0.999 + 0.0009 * torch.rand(B, S, H, D, generator=g)).to(dev)
+    reset = f"state reset at token {128 * (S // 128 // 2)}"
+    check(f"w in [0.999, 0.9999] B {B} S {S} H {H} D {D}",
+          (r, k, v, w, u), ref.wkv(r, k, v, w, u),
+          {reset: wkv_wrong(torch, r, k, v, w, u, only=reset)[reset]})
+    return worst_abs, worst_row
+
+
+def phase_rwkv_full_width(torch, dev, cfg, params, toks):
+    """rwkv6-1.6b at full width: ``make_prefill_step`` at B 1 x S
+    ``RWKV_SEQ`` with exactly n_layers wkv launches a call; the model on
+    the kernel against the plain (exact scan) path and fp32 at S 2048;
+    teacher-forced ``decode_step`` logits against the kernel forward; the
+    state's bytes after a short and a long prompt; greedy serving through
+    ``launch/serve.main --engine batch``; peak memory.  Returns the wkv
+    launches of the prefill run."""
+    import dataclasses
+    from repro_torch.kernels.wkv6 import kernel
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_from_hidden
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    L, d = cfg.n_layers, cfg.d_model
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    step = make_prefill_step(cfg)
+    batch = {"tokens": toks}
+    # -- the main path: a warm call and RWKV_STEPS timed ------------------
+    kernel.launches = 0
+    walls = []
+    for _ in range(1 + RWKV_STEPS):
+        t0 = time.perf_counter()
+        last = step(params, batch)
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+    launches = kernel.launches
+    if launches != L * len(walls):
+        raise AssertionError(f"rwkv prefill: {launches} wkv launches for "
+                             f"{len(walls)} calls, expected "
+                             f"{L * len(walls)}")
+    if last.shape != (1, 1, d) or not torch.isfinite(last).all():
+        raise AssertionError(f"rwkv prefill: {tuple(last.shape)}, finite "
+                             f"{bool(torch.isfinite(last).all())}")
+    ms = sorted(walls[1:])[len(walls[1:]) // 2] * 1e3
+    S = toks.shape[1]
+    log(f"[rwkv] make_prefill_step B 1 x S {S}: {launches} wkv launches "
+        f"in {len(walls)} calls ({L} a call); wall per call {ms:.1f} ms "
+        f"(median of {RWKV_STEPS} after a warm call {walls[0] * 1e3:.1f} "
+        f"ms), {S / ms * 1e3:.0f} tokens/s")
+    if dev.type == "cuda":
+        rows = profiled(torch, lambda: step(params, batch), 1)
+        busy = sum(r[0] for r in rows) / 1e3
+        wkv = sum(r[0] for r in rows if "wkv6" in r[2]) / 1e3
+        blas = sum(r[0] for r in rows
+                   if any(b in r[2].lower() for b in BLAS_KERNELS)) / 1e3
+        log(f"[rwkv] prefill under torch.profiler: device busy {busy:.1f} "
+            f"ms (idle share {1 - busy / ms:.3f} of the timed wall), wkv "
+            f"kernel {wkv:.1f} ms, cuBLAS {blas:.1f} ms, the rest "
+            f"{busy - wkv - blas:.1f} ms")
+        for us, n, key in rows[:10]:
+            log(f"[rwkv]   {us / 1e3:.3f} ms x{n}  {key[:90]}")
+    # -- S 2048: kernel forward, plain path (prefill_cached: the exact scan,
+    # carrying the state), fp32 plain ------------------------------------
+    T = min(2048, S)
+    short = toks[:, :T]
+    with torch.no_grad():
+        hk = M.forward(cfg, params, {"tokens": short})
+        cache = M.init_cache(cfg, 1, T + 1, device=dev)
+        hs, cache = M.prefill_cached(cfg, params, {"tokens": short}, cache)
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    use_pallas_wkv=False)
+        p32 = tree_map(lambda t: t.float(), params)
+        h32 = M.forward(cfg32, p32, {"tokens": short})
+        del p32
+    state_long = sum(t.numel() * t.element_size()
+                     for t in cache["rwkv"].values())
+    last_err = row_err(torch, hk[:, -1], hs[:, -1])
+    worst = row_err(torch, hk, hs)
+    plain32 = row_err(torch, hs, h32)
+    kern32 = row_err(torch, hk, h32)
+    log(f"[rwkv] S {T}, final hidden, {ROW_ERR}: kernel vs plain last row "
+        f"{last_err:.3g}, worst row {worst:.3g}; kernel vs fp32 "
+        f"{kern32:.3g}, plain bf16 vs fp32 {plain32:.3g} (limit "
+        f"{TF_RATIO} x that: {TF_RATIO * plain32:.3g})")
+    if not (worst <= TF_RATIO * plain32 and kern32 <= TF_RATIO * plain32):
+        raise AssertionError("rwkv: the kernel path left the plain path by "
+                             "more than bf16's own distance from fp32")
+    # -- teacher-forced decode on the state of a P-token prompt -----------
+    P, n = 64, 8
+    decode = make_decode_step(cfg)
+    cache = M.init_cache(cfg, 1, P + n, device=dev)
+    with torch.no_grad():
+        _, cache = M.prefill_cached(cfg, params, {"tokens": short[:, :P]},
+                                    cache)
+        state_short = sum(t.numel() * t.element_size()
+                          for t in cache["rwkv"].values())
+        dec = torch.cat([decode(params, cache, short[:, p:p + 1], p)[0]
+                         for p in range(P, P + n)], 1).float()
+        V = cfg.vocab
+        fwd = logits_from_hidden(params, hk[:, P:P + n], cfg).float()
+        ref16 = logits_from_hidden(params, hs[:, P:P + n], cfg).float()
+        head32 = {"lm_head": {"kernel": params["lm_head"]["kernel"].float()}}
+        ref32 = logits_from_hidden(head32, h32[:, P:P + n], cfg32)
+        del head32
+    dv = (dec - fwd)[..., :V].abs().max().item()
+    own = (ref16 - ref32)[..., :V].abs().max().item()
+    log(f"[rwkv] teacher-forced decode_step at positions {P}..{P + n - 1} "
+        f"after a {P}-token prefill_cached: max|decode - kernel forward| "
+        f"logits {dv:.4g}; plain bf16 forward vs fp32 {own:.4g} (limit "
+        f"{TF_RATIO} x that)")
+    if dv > TF_RATIO * own:
+        raise AssertionError("rwkv: decode logits left the kernel forward")
+    log(f"[rwkv] decode state: {state_short} bytes after a {P}-token "
+        f"prompt, {state_long} after a {T}-token prompt "
+        f"({state_long / 2 ** 20:.2f} MiB per sequence)")
+    if state_short != state_long:
+        raise AssertionError("rwkv: the decode state grew with the prompt")
+    del hk, hs, h32, cache
+    # -- greedy serving through the CLI's static batch --------------------
+    report = serve_main(["--engine", "batch", "--arch", cfg.name,
+                         "--batch", "4", "--prompt-len", "512", "--gen",
+                         "32", "--device", str(dev)])
+    if report["output_shape"] != [4, 512 + 32]:
+        raise AssertionError(f"serve: {report}")
+    log(f"[rwkv] serve --engine batch: 4 greedy streams, prompt 512, "
+        f"generate 32 on {report['device']}: wall {report['wall_s']} s, "
+        f"{report['tokens_per_s']} tokens/s")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    log(f"[rwkv] peak device memory {peak:.2f} GiB")
+    return launches
+
+
+def wkv_bound(ins):
+    """Least time on an H100 SXM: r, k, v, w and u read once, out (in r's
+    dtype) written once; or about 5 D^2 fp32 operations per token and head
+    (the dot product and the update) at 67 TFLOP/s; whichever is larger."""
+    r = ins[0]
+    B, S, H, D = r.shape
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + r.numel() * r.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * D * D * B * S * H / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_wkv_timing(torch, dev, real):
+    """Device time per call of the wkv kernel (CUDA events behind a queued
+    sleep) at B 1 x S ``RWKV_SEQ`` on layer 0's inputs and at B 8 x S 2048
+    (H 32, D 64, r/k/v bf16, w fp32: the model's types), beside the bound;
+    the plain version once at B 1 x S ``RWKV_SEQ``.  No single PyTorch
+    call computes the recurrence, so there is no library time."""
+    from repro_torch.kernels.wkv6 import kernel, ref
+    out = {}
+    g = torch.Generator().manual_seed(4)
+    r, k, v, w, u = real
+    B8 = (8, 2048) + tuple(r.shape[2:])
+    x8 = [torch.randn(B8, generator=g).to(dev, torch.bfloat16)
+          for _ in range(3)]
+    # the model's decay: exp(-exp(w0 + dd)), w0 = -4, dd about N(0, 0.6)
+    x8.append(torch.exp(-torch.exp(-4.0 + 0.6 * torch.randn(
+        B8, generator=g))).to(dev))
+    for label, ins, reps in ((f"B 1 S {r.shape[1]}", real, 9),
+                             ("B 8 S 2048", x8 + [u], 30)):
+        fn = lambda: kernel.wkv6(*ins)  # noqa: E731
+        for _ in range(3):
+            med, lo, hi, held = event_ms(torch, fn, reps)
+            if held:
+                break
+            log(f"[time] wkv {label}: the card drained its queue before "
+                f"the host issued the last call; again")
+        else:
+            raise AssertionError(f"wkv timing {label}: the queue never held")
+        b_ms, b_by = wkv_bound(ins)
+        out[label] = dict(ms=med, plain_ms=None, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+        log(f"[time] wkv {label} H {ins[0].shape[2]} D {ins[0].shape[3]} "
+            f"bf16 r/k/v, fp32 w: CUDA events per call, median {med:.4f} "
+            f"ms of {reps} (least {lo:.4f}, most {hi:.4f}); bound "
+            f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
+            f"computes this recurrence)")
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    ref.wkv(*real)
+    stop.record()
+    torch.cuda.synchronize()
+    plain = start.elapsed_time(stop)
+    out[f"B 1 S {r.shape[1]}"]["plain_ms"] = plain
+    log(f"[time] wkv plain version (the exact scan, one step a token) "
+        f"B 1 S {r.shape[1]}: {plain:.1f} ms, one call between CUDA events")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2011,6 +2360,14 @@ def main():
     fit_abs, fit_rel = phase_fitness_vs_plain(torch, dev, problem)
     fit_launches, _ = phase_catopt(torch, dev, problem)
     fit = phase_fitness_timing(torch, dev, problem)["paper"]
+    del problem
+    cfg_rw, rw_params, rw_toks = rwkv_model(torch, dev)
+    real = layer0_inputs(torch, cfg_rw, rw_params, rw_toks)
+    wkv_abs, wkv_row = phase_wkv_vs_plain(torch, dev, real)
+    wkv_launches = phase_rwkv_full_width(torch, dev, cfg_rw, rw_params,
+                                         rw_toks)
+    del rw_params
+    wkv = phase_wkv_timing(torch, dev, real)[f"B 1 S {RWKV_SEQ}"]
     dec = timing["decode"]
 
     def entry(name, source, replaces, launches, err, t):
@@ -2045,7 +2402,11 @@ def main():
         "max_rel_err": fit_rel,
         "ms": fit["ms"], "plain_ms": fit["plain_ms"],
         "bound_ms": fit["bound_ms"], "bound_by": fit["bound_by"],
-        "library_ms": fit["library_ms"]}]}
+        "library_ms": fit["library_ms"]},
+        entry("wkv6", WKV_SOURCE, WKV_REPLACES, wkv_launches, wkv_abs,
+              dict(wkv, max_row_err=wkv_row,
+                   library="none: no single PyTorch call computes the "
+                           "RWKV-6 recurrence"))]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {gpu}")
     log(json.dumps(report))
     log(json.dumps({"ok": True, "device": {

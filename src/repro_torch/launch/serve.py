@@ -1,13 +1,19 @@
 """Serving entry point of the PyTorch port: the isolated greedy oracle and the
-paged engine's command line.  The counterpart of ``repro/launch/serve.py``.
+command line of its paged engine and static batch.  The counterpart of
+``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --engine paged --batch 4 --prompt-len 32 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --engine batch --batch 4 --prompt-len 512 --gen 32
 
 runs on the GPU (``--device cpu --reduced`` runs the plain PyTorch path on
-the CPU) and prints the JAX CLI's JSON report: the paged engine's
-``metrics()`` fields plus wall time and tokens/s.  Weights are random,
-from the port's seeded ``init_params``; prompts come from ``--seed``.
+the CPU) and prints the JAX CLI's JSON report: wall time and tokens/s, plus
+the paged engine's ``metrics()`` fields.  ``--engine batch`` is the JAX
+CLI's static batched ``generate``, greedy only; it serves every family the
+port runs, the RWKV family from its constant-size state.  Weights are
+random, from the port's seeded ``init_params``; prompts come from
+``--seed``.
 """
 from __future__ import annotations
 
@@ -28,9 +34,9 @@ from repro_torch.models.layers import logits_from_hidden
 def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
              return_top2: bool = False
              ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Isolated greedy decoding through a dense cache: prompts (B, S0) ->
-    (B, S0 + gen) tokens on the prompts' device.  The oracle every engine
-    test holds the paged engine to.
+    """Isolated greedy decoding through a decode cache (dense K/V, or the
+    RWKV state): prompts (B, S0) -> (B, S0 + gen) tokens on the prompts'
+    device.  The oracle every engine test holds the paged engine to.
 
     With ``return_top2`` also returns the (B, gen, 2) fp32 values of the
     two largest logits at each step: how close each greedy choice was.
@@ -59,8 +65,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--engine", choices=("paged",), default="paged",
-                    help="serving path (the port has the paged engine)")
+    ap.add_argument("--engine", choices=("batch", "paged"),
+                    default="paged",
+                    help="serving path: 'batch' the static batched greedy "
+                         "generate, 'paged' the paged engine")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
@@ -86,8 +94,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     args = ap.parse_args(argv)
-
-    from repro_torch.serving import PagedServingEngine
+    if args.engine != "paged" and (args.token_budget or
+                                   args.tick != "unified" or
+                                   args.prefix_cache or
+                                   args.kv_dtype != "fp"):
+        ap.error("--token-budget/--tick/--prefix-cache/--kv-dtype are "
+                 "paged-engine knobs")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -96,6 +108,40 @@ def main(argv: Optional[List[str]] = None) -> dict:
     rng = np.random.default_rng(args.seed + 1)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    dev = torch.device(args.device)
+    if args.engine == "batch":
+        toks = torch.from_numpy(prompts).to(dev)
+        t0 = time.time()
+        out = generate(cfg, params, toks, args.gen)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        n_tokens = args.batch * args.gen
+        shape, extra = list(out.shape), {}
+    else:
+        results, extra, wall = _serve_paged(cfg, params, prompts, args)
+        n_tokens = sum(len(v) for v in results.values())
+        shape = [len(results)]
+    report = {
+        "arch": cfg.name, "engine": args.engine, "batch": args.batch,
+        "prompt_len": args.prompt_len, "generated": args.gen,
+        "device": (torch.cuda.get_device_name(dev)
+                   if dev.type == "cuda" else "cpu"),
+        "wall_s": round(wall, 3),
+        "tokens_per_s": round(n_tokens / wall, 1),
+        "output_shape": shape,
+        **extra,
+    }
+    print(json.dumps(report, indent=1))
+    return report
+
+
+def _serve_paged(cfg, params, prompts: np.ndarray, args
+                 ) -> Tuple[dict, dict, float]:
+    """Serve ``prompts`` through the paged engine.  Returns (streams by
+    request id, the engine's metrics, wall seconds)."""
+    from repro_torch.serving import PagedServingEngine
+
     max_seq = args.prompt_len + args.gen + 1
     eng = PagedServingEngine(
         cfg, params, max_slots=args.batch, block_size=args.block_size,
@@ -109,20 +155,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     results = eng.run_to_completion()
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
-    wall = time.time() - t0
-    n_tokens = sum(len(v) for v in results.values())
-    report = {
-        "arch": cfg.name, "engine": args.engine, "batch": args.batch,
-        "prompt_len": args.prompt_len, "generated": args.gen,
-        "device": (torch.cuda.get_device_name(eng.device)
-                   if eng.device.type == "cuda" else "cpu"),
-        "wall_s": round(wall, 3),
-        "tokens_per_s": round(n_tokens / wall, 1),
-        "output_shape": [len(results)],
-        **eng.metrics(),
-    }
-    print(json.dumps(report, indent=1))
-    return report
+    return results, eng.metrics(), time.time() - t0
 
 
 if __name__ == "__main__":

@@ -1,15 +1,18 @@
-"""Model assembly for the dense decoder family: init, forward, dense-cache
+"""Model assembly for the dense decoder and RWKV-6 families: init, forward,
 prefill and decode.  The counterpart of ``repro/models/model.py``.
 
     init_params(cfg, seed, device)        -> params (nested dict of tensors)
     forward(cfg, params, batch)           -> final hidden states (B, S, d)
     chunked_xent(cfg, params, hidden, labels) -> (sum nll, token count)
     loss_fn(cfg, params, batch)           -> (loss, metrics)
-    init_cache(cfg, batch, seq, device)   -> stacked dense decode cache
+    prefill(cfg, params, batch)           -> last final hidden (B, 1, d)
+    init_cache(cfg, batch, seq, device)   -> stacked decode cache
     prefill_cached(cfg, params, batch, cache) -> (hidden (B, S, d), cache)
     decode_step(cfg, params, cache, tokens, pos) -> (logits (B, 1, V), cache)
 
-Caches are updated in place; the JAX package returns updated copies.
+A dense cache holds K and V for ``seq`` positions; an RWKV cache is the
+constant-size recurrent state, whatever ``seq`` is.  Caches are updated in
+place; the JAX package returns updated copies.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import (_normal, apply_norm, compute_dtype,
                                        embed_tokens, init_embed, init_norm,
                                        logits_from_hidden, padded_vocab)
@@ -51,14 +55,23 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
 
 
 def count_params(cfg) -> int:
-    """Analytic parameter count of the dense decoder (no allocation)."""
+    """Analytic parameter count of the parameter tree (no allocation)."""
     d, L, f = cfg.d_model, cfg.n_layers, cfg.d_ff
-    attn = d * cfg.q_dim * 2 + d * cfg.kv_dim * 2
-    mlp = d * f * (3 if cfg.act in ("swiglu", "geglu") else 2)
     norms = d * (2 if cfg.norm == "layernorm" else 1)
     embed = padded_vocab(cfg.vocab) * d
     head = 0 if cfg.tie_embeddings else embed
-    return L * (attn + mlp + 2 * norms) + norms + embed + head
+    if cfg.rwkv:
+        inner, lora = cfg.q_dim, rwkv6.DECAY_LORA
+        # mu, wr/wk/wv/wg, w0, w1, w2, u, ln_out, wo
+        tm = (5 * d + 4 * d * inner + inner + d * lora + lora * inner
+              + inner + 2 * inner + inner * d)
+        cm = 2 * d + 2 * d * f
+        layer = tm + cm
+    else:
+        attn = d * cfg.q_dim * 2 + d * cfg.kv_dim * 2
+        mlp = d * f * (3 if cfg.act in ("swiglu", "geglu") else 2)
+        layer = attn + mlp
+    return L * (layer + 2 * norms) + norms + embed + head
 
 
 def forward(cfg, params: Params, batch: Dict[str, torch.Tensor]
@@ -119,11 +132,24 @@ def loss_fn(cfg, params: Params, batch: Dict[str, torch.Tensor],
     return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": cnt}
 
 
+def prefill(cfg, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """Prefill forward with no cache write: the last position's final
+    hidden (B, 1, d).  The compute-dominant part of serving a long prompt;
+    with ``use_pallas_wkv`` an RWKV stack runs its recurrence in the wkv
+    kernel here."""
+    return forward(cfg, params, batch)[:, -1:]
+
+
 def init_cache(cfg, batch: int, seq: int, device: DeviceLike = None,
                dtype=None) -> Params:
-    """Stacked (L, B, seq, Hkv, D) dense decode cache."""
+    """Stacked decode cache: (L, B, seq, Hkv, D) dense K and V, or the RWKV
+    state ``{"rwkv": {tm_shift, wkv, cm_shift}}``, whose size does not
+    depend on ``seq``."""
     dev = resolve_device(device)
     dt = dtype or compute_dtype(cfg)
+    if cfg.rwkv:
+        return {"rwkv": rwkv6.init_rwkv_state(cfg, batch, dt, dev)}
     shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
                    "v": torch.zeros(shape, dtype=dt, device=dev)}}
@@ -131,8 +157,9 @@ def init_cache(cfg, batch: int, seq: int, device: DeviceLike = None,
 
 def prefill_cached(cfg, params: Params, batch: Dict[str, torch.Tensor],
                    cache: Params) -> Tuple[torch.Tensor, Params]:
-    """Prefill that fills the dense cache from position 0.  Returns the
-    final normed hidden (B, S, d) and the cache."""
+    """Prefill that fills the decode cache from position 0 (an RWKV stack
+    runs the exact scan here, carrying its state).  Returns the final normed
+    hidden (B, S, d) and the cache."""
     x = embed_tokens(params["embed"], batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
     x, cache = apply_stack(params["layers"], x, cfg, positions=positions,

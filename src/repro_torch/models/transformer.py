@@ -1,9 +1,12 @@
-"""Decoder stack for the dense family: stacked layer params and a Python
-loop over layers.  The counterpart of ``repro/models/transformer.py``.
+"""Decoder stacks for the dense and RWKV-6 families: stacked layer params
+and a Python loop over layers.  The counterpart of
+``repro/models/transformer.py``.
 
 Layer weights keep the JAX package's stacked ``(L, ...)`` layout; the loop
-takes the ``i``-th slice of each (a view) where JAX scans over them.
-MoE, RWKV, hybrid-SSM and cross-attention layers come in later slices.
+takes the ``i``-th slice of each (a view) where JAX scans over them.  A
+dense layer is attn -> mlp, an RWKV layer time-mix -> channel-mix
+(``models/rwkv6.py``).  MoE, hybrid-SSM and cross-attention layers come in
+later slices.
 
 ``cfg.remat`` is the JAX package's rematerialisation policy, applied to
 each layer body when a gradient is being recorded: ``"full"`` keeps only
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.models import rwkv6
 from repro_torch.models.layers import (apply_attention, apply_mlp,
                                        apply_norm, init_attention, init_mlp,
                                        init_norm)
@@ -32,13 +36,14 @@ FULL_WINDOW = 1 << 30
 
 
 def check_dense(cfg) -> None:
-    """Raise for the families this slice of the port does not run yet."""
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.rwkv
+    """Raise for the families this slice of the port does not run yet: it
+    runs dense decoders and RWKV-6 stacks."""
+    if ((cfg.family != "dense" and not cfg.rwkv) or cfg.moe is not None
             or cfg.parallel_ssm or cfg.n_encoder_layers
             or cfg.n_image_tokens or cfg.rope_theta <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoders only so far "
-            f"(ROADMAP.md Queue 1 item 2: MoE; item 12: the other "
+            f"{cfg.name}: the port runs dense decoders and RWKV-6 only so "
+            f"far (ROADMAP.md Queue 1 item 4: MoE; item 6: the other "
             f"families)")
 
 
@@ -60,10 +65,16 @@ def init_stack(cfg, gen: torch.Generator, n_layers: int, device,
                dtype: Optional[torch.dtype] = None) -> Params:
     """``dtype``: of the matrices, the compute dtype by default."""
     check_dense(cfg)
-    return {"ln1": init_norm(cfg, (n_layers, cfg.d_model), device),
-            "ln2": init_norm(cfg, (n_layers, cfg.d_model), device),
-            "attn": init_attention(cfg, gen, n_layers, device, dtype),
-            "mlp": init_mlp(cfg, gen, n_layers, device, dtype)}
+    p = {"ln1": init_norm(cfg, (n_layers, cfg.d_model), device),
+         "ln2": init_norm(cfg, (n_layers, cfg.d_model), device)}
+    if cfg.rwkv:
+        p["rwkv"] = {
+            "tm": rwkv6.init_time_mix(cfg, gen, n_layers, device, dtype),
+            "cm": rwkv6.init_channel_mix(cfg, gen, n_layers, device, dtype)}
+        return p
+    p["attn"] = init_attention(cfg, gen, n_layers, device, dtype)
+    p["mlp"] = init_mlp(cfg, gen, n_layers, device, dtype)
+    return p
 
 
 def unstack(p: Params, n: int) -> List[Params]:
@@ -97,12 +108,38 @@ def remat(fn: Callable, cfg) -> Callable:
     raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
+def rwkv_layer(lp: Params, x: torch.Tensor, cfg, *,
+               state: Optional[Params] = None) -> torch.Tensor:
+    """One RWKV-6 layer (time-mix -> channel-mix).  ``state``: this layer's
+    ``{"tm_shift", "wkv", "cm_shift"}`` views of the stacked decode state,
+    overwritten with the new state."""
+    tm_state = ({"shift": state["tm_shift"], "wkv": state["wkv"]}
+                if state is not None else None)
+    h, tm_new = rwkv6.apply_time_mix(lp["rwkv"]["tm"],
+                                     apply_norm(lp["ln1"], x), cfg,
+                                     state=tm_state)
+    x = x + h
+    cm_state = {"shift": state["cm_shift"]} if state is not None else None
+    h, cm_new = rwkv6.apply_channel_mix(lp["rwkv"]["cm"],
+                                        apply_norm(lp["ln2"], x), cfg,
+                                        state=cm_state)
+    if state is not None:
+        state["tm_shift"].copy_(tm_new["shift"])
+        state["wkv"].copy_(tm_new["wkv"])
+        state["cm_shift"].copy_(cm_new["shift"])
+    return x + h
+
+
 def layer_body(lp: Params, x: torch.Tensor, cfg, *,
                positions: torch.Tensor, window: int, causal: bool = True,
                cache: Optional[Params] = None,
                cache_index: Optional[int] = None) -> torch.Tensor:
-    """One dense transformer layer (attn -> mlp); ``cache`` is written in
-    place."""
+    """One layer; ``cache`` is written in place.  Dense: attn -> mlp, with
+    ``cache`` this layer's ``{"k", "v"}``.  RWKV: ``rwkv_layer``, with
+    ``cache`` this layer's state (positions, window and the cache index
+    play no part)."""
+    if cfg.rwkv:
+        return rwkv_layer(lp, x, cfg, state=cache)
     a, _ = apply_attention(lp["attn"], apply_norm(lp["ln1"], x), cfg,
                            positions=positions, causal=causal,
                            window=window, cache=cache,
@@ -117,12 +154,14 @@ def apply_stack(p: Params, x: torch.Tensor, cfg, *,
                 cache_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run every layer in order.  ``caches`` is the stacked (L, ...) dense
-    cache, updated in place.  Without caches, while a gradient is being
-    recorded, each layer runs under ``cfg.remat``.  Returns (x, caches)."""
+    cache (``{"kv": ...}``) or RWKV state (``{"rwkv": ...}``), updated in
+    place.  Without caches, while a gradient is being recorded, each layer
+    runs under ``cfg.remat``.  Returns (x, caches)."""
     for i, lp in enumerate(unstack(p, len(windows))):
         kw = dict(positions=positions, window=int(windows[i]), causal=causal)
         if caches is not None:
-            cache_l = {"k": caches["kv"]["k"][i], "v": caches["kv"]["v"][i]}
+            stacked = caches["rwkv"] if cfg.rwkv else caches["kv"]
+            cache_l = {k: v[i] for k, v in stacked.items()}
             x = layer_body(lp, x, cfg, cache=cache_l,
                            cache_index=cache_index, **kw)
         elif torch.is_grad_enabled():

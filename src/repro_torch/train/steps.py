@@ -1,7 +1,7 @@
 """The train step: the counterpart of ``repro/train/steps.py``'s
-``TrainState``, ``init_train_state`` and ``make_train_step`` (one device;
-sharded steps wait for ROADMAP.md Queue 1 item 7, ``make_prefill_step``
-for item 4).
+``TrainState``, ``init_train_state``, ``make_train_step``,
+``make_prefill_step`` and ``make_decode_step`` (one device; sharded steps
+wait for ROADMAP.md Queue 1 item 7, so no ``info=``).
 
 A step is functional, as the jitted JAX step is: it returns a new
 ``TrainState`` and leaves the one it was given as it was, so one initial
@@ -97,3 +97,32 @@ def make_train_step(cfg, *, opt_cfg: Optional[AdamWConfig] = None,
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def _params_device(params: Dict[str, Any]) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def make_prefill_step(cfg) -> Callable[[Dict[str, Any],
+                                         Dict[str, torch.Tensor]],
+                                        torch.Tensor]:
+    """Returns prefill_step(params, batch) -> ``M.prefill``: the last
+    position's final hidden (B, 1, d), with no gradient recorded.  The
+    batch is moved to the params' device."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        dev = _params_device(params)
+        return M.prefill(cfg, params, {k: v.to(dev) for k, v in batch.items()})
+    return prefill_step
+
+
+def make_decode_step(cfg) -> Callable[..., Tuple[torch.Tensor,
+                                                 Dict[str, Any]]]:
+    """Returns decode_step(params, cache, tokens, pos) -> ``M.decode_step``
+    (logits (B, 1, V_padded), the cache updated in place), with no
+    gradient recorded."""
+    @torch.no_grad()
+    def decode_step(params, cache, tokens, pos):
+        return M.decode_step(cfg, params, cache,
+                             tokens.to(_params_device(params)), pos)
+    return decode_step

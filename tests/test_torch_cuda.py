@@ -516,3 +516,111 @@ def test_cuda_flash_trainable_and_counts(cuda_device):
     torch.cuda.synchronize()
     for a, b in zip(ts, rs):
         assert _row_err(a.grad, b.grad) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The RWKV-6 recurrence (wkv6)
+# ---------------------------------------------------------------------------
+
+# the worst row's ||kernel - plain|| / ||plain|| (``_row_err``; a row is one
+# token's output of one head).  fp32: sums over D in another order.  bf16:
+# the kernel rounds its output to bf16, up to 2^-8 of each value, against
+# the plain version's fp32 output from the same inputs.
+WKV_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (B, S, H, D): the shapes of the JAX package's test_wkv6_vs_ref
+WKV_CASES = [(2, 64, 4, 16), (1, 96, 2, 32), (2, 128, 3, 64), (1, 64, 1, 128)]
+
+
+def wkv_case(dev, dtype, B, S, H, D, seed=0, w_dtype=None):
+    """r, k, v normal, w = sigmoid(normal), u = normal x 0.1, as the JAX
+    test draws them; r, k, v in ``dtype``, w in ``w_dtype`` (the same by
+    default), u fp32."""
+    g = torch.Generator().manual_seed(seed)
+    rkv = [torch.randn(B, S, H, D, generator=g).to(dev, dtype)
+           for _ in range(3)]
+    w = torch.sigmoid(torch.randn(B, S, H, D, generator=g)).to(
+        dev, w_dtype or dtype)
+    u = (torch.randn(H, D, generator=g) * 0.1).to(dev)
+    return (*rkv, w, u)
+
+
+@pytest.mark.parametrize("dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["fp32", "bf16", "bf16_w_fp32"])
+@pytest.mark.parametrize("B,S,H,D", WKV_CASES)
+def test_cuda_wkv6_matches_plain(cuda_device, B, S, H, D, dtype, w_dtype):
+    """Each token's output within WKV_RTOL of the plain version, in r's
+    dtype, bit-equal across calls; the bonus u dropped lands outside."""
+    from repro_torch.kernels.wkv6 import kernel, ref
+    r, k, v, w, u = wkv_case(cuda_device, dtype, B, S, H, D,
+                             w_dtype=w_dtype)
+    got = kernel.wkv6(r, k, v, w, u)
+    again = kernel.wkv6(r, k, v, w, u)
+    want = ref.wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
+    assert torch.equal(got, again)
+    assert _row_err(got, want) <= WKV_RTOL[dtype]
+    assert _row_err(ref.wkv(r, k, v, w, torch.zeros_like(u)), want) > \
+        WKV_RTOL[dtype]
+
+
+def test_cuda_wkv6_reads_strided_inputs(cuda_device):
+    """r, k, v as views of one (B, S, 3, H, D) projection and w as every
+    other head of a wider tensor: read by stride, no copies needed, the
+    same result as from contiguous copies."""
+    from repro_torch.kernels.wkv6 import kernel
+    B, S, H, D = 2, 70, 3, 64
+    g = torch.Generator().manual_seed(3)
+    rkv = torch.randn(B, S, 3, H, D, generator=g).to(cuda_device)
+    w = torch.sigmoid(torch.randn(B, S, 2 * H, D, generator=g)).to(
+        cuda_device)[:, :, ::2]
+    u = torch.randn(H, D, generator=g).to(cuda_device) * 0.1
+    r, k, v = rkv.unbind(2)
+    assert not r.is_contiguous() and not w.is_contiguous()
+    got = kernel.wkv6(r, k, v, w, u)
+    want = kernel.wkv6(*(t.contiguous() for t in (r, k, v, w)), u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cuda_wkv6_op_counts_and_has_no_gradient(cuda_device):
+    """The op launches the kernel once a call; with a gradient being
+    recorded it raises rather than run the plain version."""
+    from repro_torch.kernels.wkv6 import kernel, ops
+    r, k, v, w, u = wkv_case(cuda_device, torch.float32, 1, 33, 2, 32)
+    before = kernel.launches
+    ops.wkv(r, k, v, w, u)
+    assert kernel.launches == before + 1
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.wkv(r.requires_grad_(True), k, v, w, u)
+    with torch.no_grad():
+        ops.wkv(r, k, v, w, u)
+    assert kernel.launches == before + 2
+
+
+def test_cuda_rwkv_forward_on_the_kernel(cuda_device):
+    """Reduced rwkv6-1.6b (fp32) on the card: ``use_pallas_wkv`` runs one
+    wkv launch per layer and matches the exact scan; generate's greedy
+    stream (the scan through the decode state) is the same with either."""
+    import dataclasses
+    from repro_torch.config import get_config, reduced
+    from repro_torch.kernels.wkv6 import kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = reduced(get_config("rwkv6-1.6b"))
+    cfg_k = dataclasses.replace(cfg, use_pallas_wkv=True)
+    params = M.init_params(cfg, seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(4)
+    u = params["layers"]["rwkv"]["tm"]["u"]
+    u.copy_(torch.randn(u.shape, generator=g) * 0.1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=g).to(cuda_device)
+    before = kernel.launches
+    with torch.no_grad():
+        hk = M.forward(cfg_k, params, {"tokens": toks})
+        hs = M.forward(cfg, params, {"tokens": toks})
+    assert kernel.launches == before + cfg.n_layers
+    torch.cuda.synchronize()
+    assert _row_err(hk, hs) <= 1e-4
+    assert torch.equal(generate(cfg_k, params, toks[:, :9], 6),
+                       generate(cfg, params, toks[:, :9], 6))
