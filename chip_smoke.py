@@ -80,12 +80,14 @@ Phases, each raising on failure:
      epilogue in torch, fp32, TF32 off) at the paper's scale and the
      polish's, beside the kernel's bound;
   10. the flash-attention kernels (forward without and with lse, dq,
-     dk/dv) against their plain versions, fp32 and bf16: granite-3-2b's
-     heads at both training shapes, gemma MQA at D 256, D 128 with a
-     ragged S, a 32-token window, softcap 30, non-causal, the launcher's
-     D 40.  Each row (a query's o or dq, a key's dk or dv) within
-     ``FLASH_TOL`` relative of the plain row, below what known-wrong
-     kernels give (the causal mask flipped; the last query tile's last
+     dk/dv; bf16 on the tensor cores, fp32 scalar) against their plain
+     versions, fp32 and bf16: granite-3-2b's heads at both training
+     shapes, gemma MQA at D 256, D 128 with a ragged S, a 32-token
+     window, softcap 30, non-causal, the launcher's D 40, and the bf16
+     tiling's edges (S 65 under window and softcap, D 20 with 8-byte
+     copies, an odd D 33 with plain loads).  Each row (a query's o or
+     dq, a key's dk or dv) within ``FLASH_TOL`` relative of the plain
+     row, below what known-wrong kernels give (the causal mask flipped; the last query tile's last
      or middle 64 keys of its band dropped; no softcap factor in the backward; dk, dv of one
      query head, not group-summed); the backward bit-equal across calls;
   11. granite-3-2b at full width (40 layers, d 2048, vocab 49155, bf16
@@ -97,16 +99,21 @@ Phases, each raising on failure:
      at batch 1, seq 4096, with exactly 2 L forward-with-lse, L dq and L
      dk/dv launches per step; a forward-only loss after (b) on the
      forward without lse (L launches) against plain attention; the
-     step's breakdown under ``torch.profiler``;
+     step's breakdown under ``torch.profiler`` at (a) and at (b);
   11b. the training launcher through the five verbs at
      ``examples/train_lm.py``'s reduced config (d 320, 6 layers, vocab
      2048, batch 8, seq 128, 200 steps) with ``--pallas-attention`` and a
      preemption at step 100: the loss falls, the run resumes from step
      100, and its final parameters are bit-equal to an uninterrupted run;
-  12. device time per call (CUDA events behind a queued sleep, the
-     profiler's device sum beside it) of the three flash kernels at granite-3-2b's training shapes (bf16,
-     causal), their plain versions and SDPA (forward, and its backward
-     alone), beside the bound.
+  12. each flash kernel's registers, spills and static shared memory
+     (the ptxas log), the dynamic shared memory its launch asks for, and
+     its SASS HMMA (tensor-core) and LDGSTS (cp.async) counts
+     (``cuobjdump -sass``): a bf16 kernel without both, an fp32 one with
+     HMMA, or a bf16 spill at D 64 fails the phase.  Then device time per
+     call (CUDA events behind a queued sleep, the profiler's device sum
+     beside it) of the three flash kernels at granite-3-2b's training
+     shapes (bf16, causal), their plain versions and SDPA (forward, and
+     its backward alone), beside the bound.
 
   13. the RWKV-6 wkv kernel against its plain version (the exact scan),
      r, k, v fp32 and bf16: the JAX test's four shapes; layer 0's r, k,
@@ -1265,7 +1272,14 @@ def phase_flash_vs_plain(torch, dev):
              ("window 32", 2, 200, 32, 8, 64, True, 32, 0.0),
              ("softcap 30", 2, 200, 32, 8, 64, True, 0, 30.0),
              ("non-causal", 2, 200, 32, 8, 64, False, 0, 0.0),
-             ("launcher D 40", 8, 128, 4, 2, 40, True, 0, 0.0)]
+             ("launcher D 40", 8, 128, 4, 2, 40, True, 0, 0.0),
+             # the bf16 tiling's edges: one row past a 64-row tile under
+             # window and softcap; 127 rows of D 20 (8-byte copies); an
+             # odd D (plain loads, no cp.async)
+             ("S 65 window 32 softcap 30", 1, 65, 32, 8, 64, True, 32,
+              30.0),
+             ("D 20 S 127 non-causal", 2, 127, 4, 2, 20, False, 0, 0.0),
+             ("D 33", 1, 96, 4, 1, 33, True, 0, 0.0)]
     worst = {"fwd": 0.0, "fwd_lse": 0.0, "bwd": 0.0}
     worst_row = dict(worst)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1528,11 +1542,14 @@ def phase_train_full_width(torch, dev):
     if got_eval["fwd"] != L or abs(ev_f - ev_p) > LOSS_RTOL * abs(ev_p):
         raise AssertionError(f"(b) forward only: {got_eval}, loss flash "
                              f"{ev_f} against plain {ev_p}")
+    del bb
+    log("[train] (b) breakdown:")
+    breakdown_b = train_breakdown(torch, cfg, step, st, batch_b)
     del st
     torch.cuda.empty_cache()
     total = {k: got_a[k] + got_eval[k] for k in got_a}
-    return dict(launches=total, breakdown=breakdown, wall_a_ms=wall / 5 * 1e3,
-                wall_b_ms=wall_b * 1e3)
+    return dict(launches=total, breakdown=breakdown, breakdown_b=breakdown_b,
+                wall_a_ms=wall / 5 * 1e3, wall_b_ms=wall_b * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1632,6 +1649,42 @@ def event_ms(torch, fn, reps, warmup=2):
     return ts[len(ts) // 2], ts[0], ts[-1], held
 
 
+def flash_build_report():
+    """Each flash instantiation's registers, spills and static shared
+    memory (the ptxas log), the dynamic shared memory its launch asks
+    for, and its HMMA (tensor-core) and LDGSTS (cp.async) instructions
+    (``cuobjdump -sass``).  Raises if a bf16 kernel has no HMMA or no
+    LDGSTS, if an fp32 one has HMMA, or if a bf16 kernel spills at D 64
+    (granite-3-2b's head dim, the main path's)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel
+    rep = _build.ptxas_report("flash_attention")
+    sass = _build.sass_counts("flash_attention")
+    names = _build.demangle(sorted(rep))
+    bad = []
+    for f in sorted(rep, key=lambda f: names[f]):
+        r, c, name = rep[f], sass.get(f, {}), names[f]
+        bf16 = "_mma" in f
+        kind = ("dkv" if "dkv" in f else "dq" if "dq" in f else "fwd")
+        d = next((dm for dm in (16, 32, 64, 128, 256)
+                  if f"Li{dm}E" in f), None)   # the padded head dim
+        smem = (kernel.smem_bytes(kind, torch.bfloat16 if bf16
+                                  else torch.float32, d) if d else None)
+        log(f"[build] {name[:72]}: {r['registers']} registers, spill "
+            f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, "
+            f"static smem {r['smem']} B, dynamic smem {smem} B; SASS HMMA "
+            f"{c.get('HMMA')}, LDGSTS {c.get('LDGSTS')}")
+        if bf16 and not (c.get("HMMA") and c.get("LDGSTS")):
+            bad.append(f"{name}: a bf16 kernel without HMMA or LDGSTS")
+        if not bf16 and c.get("HMMA"):
+            bad.append(f"{name}: an fp32 kernel with HMMA")
+        if bf16 and d == 64 and (r["spill_stores"] or r["spill_loads"]):
+            bad.append(f"{name}: spills at D 64")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def phase_flash_timing(torch, dev):
     """Device time per call of the three flash kernels at granite-3-2b's
     full-width training shapes, bf16 causal, beside the bound, the plain
@@ -1642,6 +1695,7 @@ def phase_flash_timing(torch, dev):
     backward's."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
+    flash_build_report()
     out = {}
     for label, B, S in (("(a)", 8, 128), ("(b)", 1, 4096)):
         H, Hkv, D, dt = 32, 8, 64, torch.bfloat16

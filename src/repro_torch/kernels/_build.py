@@ -15,18 +15,22 @@ the library in ``<name>-<hash>.log``.
 
 Pointers and the stream go into the C functions as ``c_void_p``; each
 returns ``cudaGetLastError()`` after its launch and the wrapper raises on
-anything but 0.  This never runs at import: the CPU tests import every
-module on a machine with no ``nvcc``.
+anything but 0.  ``ptxas_report`` reads that log per kernel, and
+``sass_counts`` counts instructions in a built library's SASS
+(``cuobjdump -sass``), which shows what ran on the tensor cores (``HMMA``)
+and what loaded asynchronously (``LDGSTS``).  This never runs at import:
+the CPU tests import every module on a machine with no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -105,3 +109,89 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def _tool(name: str) -> Optional[str]:
+    """A CUDA toolkit binary beside ``nvcc``, or on ``PATH``; None if
+    there is none."""
+    try:
+        beside = Path(nvcc()).parent / name
+    except RuntimeError:
+        beside = None
+    if beside is not None and beside.is_file():
+        return str(beside)
+    return shutil.which(name)
+
+
+def demangle(names: List[str]) -> Dict[str, str]:
+    """{mangled: readable} through ``cu++filt`` (or ``c++filt``); a name
+    stays as it is where neither is installed."""
+    tool = _tool("cu++filt") or shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else \
+        {n: n for n in names}
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of an ``-Xptxas -v`` log: registers,
+    spill stores and loads (bytes), stack frame and static shared memory
+    (bytes)."""
+    rep: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            rep[fn] = dict(registers=0, spill_stores=0, spill_loads=0,
+                           stack=0, smem=0)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            rep[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            rep[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            rep[fn]["smem"] = int(m.group(1)) if m else 0
+    return rep
+
+
+def parse_sass(sass: str, ops=("HMMA", "LDGSTS")) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of ``cuobjdump -sass`` output: how many
+    instructions of each opcode in ``ops`` it holds."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    pat = re.compile(r"\b(" + "|".join(ops) + r")\b")
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {op: 0 for op in ops}
+        elif fn is not None and "/*" in ln:
+            for op in pat.findall(ln.split("*/", 1)[-1]):
+                out[fn][op] += 1
+    return out
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptxas` of the build log of source ``name``."""
+    return parse_ptxas(target(name).with_suffix(".log").read_text())
+
+
+def sass_counts(name: str,
+                ops=("HMMA", "LDGSTS")) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_sass` of the built library ``name``.  Raises where
+    ``cuobjdump`` is missing."""
+    tool = _tool("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    sass = subprocess.run([tool, "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, check=True).stdout
+    return parse_sass(sass, ops)

@@ -1,9 +1,12 @@
 // Causal / windowed / softcapped GQA flash attention, forward and backward:
 // the Hopper port of repro/kernels/flash_attention/kernel.py --
-//   flash_attention_pallas  (_flash_fwd_kernel)      -> fwd, kLse false;
-//   flash_attention_fwd_lse (_flash_fwd_kernel_lse)  -> fwd, kLse true;
-//   flash_attention_bwd     (_flash_bwd_dq_kernel,
-//                            _flash_bwd_dkv_kernel)  -> bwd_dq, bwd_dkv.
+//   flash_attention_pallas  (_flash_fwd_kernel, pallas_call :425)
+//                                        -> forward, kLse false;
+//   flash_attention_fwd_lse (_flash_fwd_kernel_lse, :285)
+//                                        -> forward, kLse true;
+//   flash_attention_bwd     (_flash_bwd_dq_kernel :333,
+//                            _flash_bwd_dkv_kernel :357)
+//                                        -> dq, dk/dv.
 //
 // Layout as the TPU kernels': q, o, do (B*H, Sq, D); k, v (B*Hkv, Sk, D);
 // lse, dsum (B*H, Sq) fp32.  Query head row bh = b*H + h reads kv row
@@ -11,72 +14,90 @@
 // query i iff (!causal || j <= i) && (window <= 0 || i - j < window).
 //
 // What each computes:
-//   fwd     o = softmax(mask(softcap(q k^T * D^-0.5))) v with online softmax
-//           in fp32 (m, l, acc); masked scores are -1e9, as in the TPU
-//           kernel, so results do not depend on the tiling; softcap is
-//           applied before the mask; p is rounded to v's type before PV;
-//           l is floored at 1e-30; o in q's type; with kLse also
-//           lse = m + log(l) in fp32 (what the backward needs).
-//   bwd_dq  dq = sum over keys of ds k * D^-0.5, with p = exp(s - lse),
+//   forward o = softmax(mask(softcap(q k^T * D^-0.5))) v with online
+//           softmax in fp32 (m, l, acc); masked scores are -1e9, as in the
+//           TPU kernel, keys past Sk -inf; softcap is applied before the
+//           mask; p is rounded to v's type before PV; l is floored at
+//           1e-30; o in q's type; with kLse also lse = m + log(l) in fp32.
+//   dq      dq = sum over keys of ds k * D^-0.5, with p = exp(s - lse),
 //           ds = p (do v^T - dsum), times (1 - tanh^2) under softcap: the
 //           algebra of _bwd_block.
-//   bwd_dkv dk = sum over query rows of ds^T q * D^-0.5, dv = p^T do, for
+//   dk/dv   dk = sum over query rows of ds^T q * D^-0.5, dv = p^T do, for
 //           one KV head: the block loops over the G query heads that share
 //           it and writes the group's sum directly (the TPU kernel writes
-//           per-query-head dk/dv and ops.py group-sums them in a second
-//           pass).  The plain version keeps the TPU kernel's per-head
-//           outputs; its group sum is what this kernel's output equals.
+//           per-query-head dk/dv and ops.py group-sums them).  The plain
+//           version keeps the TPU kernel's per-head outputs; its group sum
+//           is what this kernel's output equals.
 //
-// Design for a CUDA grid (the TPU carries m/l/acc across a sequential grid
-// axis; here nothing carries between blocks):
-//   * fwd and bwd_dq: one block per (64-row query tile, b*H + h) that loops
-//     over the K/V tiles of the causal / window band itself; bwd_dkv: one
-//     block per (64-row key tile, b*Hkv + hk) that loops over the G heads
-//     and the query tiles of the band.  Tiles wholly outside the band are
-//     skipped by the TPU kernel's test (kernel.py:105-110).  Edges are
-//     bounds-checked (rows past Sq / Sk are zero and never stored; keys
-//     past Sk score -inf), so any Sq and Sk work, and any head dim up to
-//     256: D is padded with zeros to the next of 16, 32, 64, 128, 256 in
-//     shared memory (DM below).  At DM 256 the tiles are 32 rows, so the
-//     backward's four tiles fit in shared memory.
-//   * No atomics: every output element is written once, by the block that
-//     owns it, after a loop in a fixed order.  The backward is therefore
-//     deterministic, which is what makes a resumed training run equal an
-//     uninterrupted one on the card.
-//   * 128 threads: 16 x 8.  Thread (ty, tx) holds a (BQ/16) x (BK/8)
-//     micro-tile of the score tile, rows ty*RM.., columns tx + 8j; row
-//     reductions go over the 8 lanes of a row group with shuffles.  Tiles
-//     live in shared memory in fp32 with a padded row stride (DM + 1), so
-//     the dot loops read without bank conflicts.
+// Bound on an H100: operations.  The work is 4 D flops per visible (query,
+// key) pair forward and 10 D backward against each input byte read once:
+// at granite-3-2b's S 4096, D 64 about 68.7 GFLOP over 21.5 MB forward,
+// some 3,200 flops a byte, far above the ~295 flop/byte ridge of 989
+// TFLOP/s bf16 over 3.35 TB/s.  A block brings each K/V tile into shared
+// memory once for its 64 queries (64 flops a byte of tile).  Only the
+// tensor cores move it.
 //
-// Bound on an H100: operations.  A tile pair costs 4*BQ*BK*D flops forward
-// (QK and PV) and 8*BQ*BK*D backward for about 2*BK*D*itemsize bytes of
-// K/V, far above the ~295 flop/byte ridge at granite-3-2b's D 64.  This
-// version is simple and right, not fast: the dots run as scalar fp32 FMA
-// from shared memory (67 TFLOP/s peak, not the tensor cores' 989 in bf16),
-// tiles are loaded element by element and not prefetched.  mma / wgmma
-// with TMA-fed double-buffered tiles are later work.
+// Grid: nothing carries between blocks (the TPU carries m/l/acc across a
+// sequential grid axis).  The forward and dq: one block per (query head,
+// 64-row query tile) loops over the key tiles of the causal / window band
+// (the TPU kernel's skip, kernel.py:105-110); dk/dv: one block per (KV
+// head, 64-key tile) loops over its G query heads and the query tiles of
+// the band, in a fixed order.  No atomics: every output element is written
+// once by the block that owns it, so the backward is bit-equal from call
+// to call, which a resumed training run relies on.  Edges are
+// bounds-checked (rows past Sq / Sk are zero and never stored), so any Sq
+// and Sk work; D <= 256 is zero-padded in shared memory to DM, the next of
+// 16, 32, 64, 128, 256.
+//
+// bf16 (flash_mma.cuh; every full-width path runs it): four warps, 16 rows
+// each.  Products are mma.sync m16n8k16, bf16 in, fp32 accumulate: scores
+// are fp32 sums of exact bf16 products, as in JAX.  The block-fixed tile
+// (q, or q and do, or k and v) is read once; the other side streams
+// through a two-stage ring of 64-row tiles (32 at DM 256): cp.async of 16
+// bytes (8 or 4 for narrower rows, plain loads for odd D), zero-filled
+// past S and D, the next tile in flight while the block computes on this
+// one.  Rows are padded by 8 bf16, so the 8 rows an ldmatrix reads fall in
+// 8 distinct bank quads.  A row of the score tile lives in a quad of 4
+// lanes: scale, softcap, mask and the online softmax run on the fp32
+// accumulator fragments with two shuffles per reduction, exponentials on
+// ex2.approx, the mask only where the band's edge crosses a warp's tile
+// (per-score work, not registers, set these kernels' time); p (forward) and
+// ds (dq) are rounded to bf16 in registers and are the A operand of the
+// next product, with V and K transposed by ldmatrix.trans.  dk/dv computes
+// s^T = k q^T and dp^T = v do^T, so a warp's 16 key rows hold p^T and ds^T
+// as A fragments for dv += p^T do and dk += ds^T q.  The backward rounds
+// p and ds to bf16 as operands, which JAX's fp32 _bwd_block does not.  At
+// DM 256 two blocks split the output columns, each recomputing the scores.
+// mma.sync reaches part of the tensor cores' rate; wgmma with TMA and a
+// warp-specialised producer is later work.
+//
+// fp32 keeps the scalar design (the tensor cores take fp32 only as TF32,
+// whose 10-bit mantissa is far from fp32's 1e-4 limit): 128 threads, 16 x
+// 8, each a micro-tile of the score tile, tiles in padded fp32 shared
+// memory, dots as fp32 FMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_mma.cuh"
+
 namespace {
+
+using flash_mma::key_band;
+using flash_mma::query_band;
 
 constexpr int kThreads = 128;     // 16 x 8
 constexpr float kNegInf = -1e9f;  // masked score, as the TPU kernel
 
+// The scalar kernels below are instantiated for fp32 only (T = float);
+// bf16 runs the tensor-core kernels of flash_mma.cuh.
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Tiles by padded head dim: 64 rows, 32 at DM 256 (shared memory).
@@ -142,38 +163,6 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B,
 __device__ __forceinline__ bool visible(int qi, int kj, int causal,
                                         int window) {
   return (!causal || kj <= qi) && (window <= 0 || qi - kj < window);
-}
-
-// The band of key tiles a query tile [q0, q0 + BQ) reaches, as in
-// kernel.py:105-110: [*lo, *hi).
-__device__ __forceinline__ void key_band(int q0, int BQ, int BK, int Sk,
-                                         int causal, int window, int* lo,
-                                         int* hi) {
-  long long end = (Sk + BK - 1) / BK;
-  if (causal) end = min(end, (long long)(q0 + BQ - 1) / BK + 1);
-  long long beg = 0;
-  if (window > 0) {   // k0 + BK - 1 >= q0 - window + 1
-    const long long need = (long long)q0 - window + 2 - BK;
-    if (need > 0) beg = (need + BK - 1) / BK;
-  }
-  *lo = (int)beg;
-  *hi = (int)max(end, beg);
-}
-
-// The band of query tiles a key tile [k0, k0 + BK) is reached from.
-__device__ __forceinline__ void query_band(int k0, int BQ, int BK, int Sq,
-                                           int causal, int window, int* lo,
-                                           int* hi) {
-  long long end = (Sq + BQ - 1) / BQ;
-  long long beg = 0;
-  if (causal) {       // k0 <= q0 + BQ - 1
-    const long long need = (long long)k0 - BQ + 1;
-    if (need > 0) beg = (need + BQ - 1) / BQ;
-  }
-  if (window > 0)     // q0 <= k0 + BK + window - 2
-    end = min(end, ((long long)k0 + BK + window - 2) / BQ + 1);
-  *lo = (int)beg;
-  *hi = (int)max(end, beg);
 }
 
 template <typename T, int DM, bool kLse>
@@ -590,63 +579,134 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   q, k, v, dout, lse, dsum, dk, dv, BH, H, Hkv, Sq, Sk, D, causal,        \
       window, scale, softcap, stream
 
-template <typename T>
-cudaError_t fwd_d(const void* q, const void* k, const void* v, void* o,
-                  void* lse, int BH, int H, int Hkv, int Sq, int Sk, int D,
-                  int causal, int window, float scale, float softcap,
-                  cudaStream_t stream) {
-  if (D <= 16) return fwd<T, 16>(FWD_ARGS);
-  if (D <= 32) return fwd<T, 32>(FWD_ARGS);
-  if (D <= 64) return fwd<T, 64>(FWD_ARGS);
-  if (D <= 128) return fwd<T, 128>(FWD_ARGS);
-  if (D <= 256) return fwd<T, 256>(FWD_ARGS);
-  return cudaErrorInvalidValue;
+// The widest cp.async (16, 8 or 4 bytes) that rows of D bf16 values and
+// every pointer allow; 0: plain loads (odd D).
+int copy_bytes(int D, const void* const* ptrs, int n) {
+  int vec = D % 8 == 0 ? 16 : D % 4 == 0 ? 8 : D % 2 == 0 ? 4 : 0;
+  for (int i = 0; i < n; ++i)
+    while (vec && reinterpret_cast<uintptr_t>(ptrs[i]) % vec)
+      vec = vec > 4 ? vec / 2 : 0;
+  return vec;
 }
 
-template <typename T>
-cudaError_t dq_d(const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* dsum,
-                 void* dq, int BH, int H, int Hkv, int Sq, int Sk, int D,
-                 int causal, int window, float scale, float softcap,
-                 cudaStream_t stream) {
-  if (D <= 16) return bwd_dq<T, 16>(DQ_ARGS);
-  if (D <= 32) return bwd_dq<T, 32>(DQ_ARGS);
-  if (D <= 64) return bwd_dq<T, 64>(DQ_ARGS);
-  if (D <= 128) return bwd_dq<T, 128>(DQ_ARGS);
-  if (D <= 256) return bwd_dq<T, 256>(DQ_ARGS);
-  return cudaErrorInvalidValue;
+using bf16 = __nv_bfloat16;
+
+template <int DM>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int BH, int H, int Hkv, int Sq, int Sk, int D,
+                    int causal, int window, float scale, float softcap,
+                    cudaStream_t stream) {
+  using C = flash_mma::Cfg<DM>;
+  const void* in[] = {q, k, v};
+  const int vec = copy_bytes(D, in, 3);
+  const size_t smem = flash_mma::fwd_smem<DM>();
+  const dim3 grid(BH, (Sq + C::BM - 1) / C::BM, C::NZ);
+  cudaError_t err;
+  if (lse != nullptr) {
+    static size_t set = 48 * 1024;
+    err = allow_smem(flash_mma::flash_fwd_mma<DM, true>, smem, &set);
+    if (err != cudaSuccess) return err;
+    flash_mma::flash_fwd_mma<DM, true>
+        <<<grid, flash_mma::kThreads, smem, stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o),
+            static_cast<float*>(lse), H, Hkv, Sq, Sk, D, causal, window,
+            scale, softcap, vec);
+  } else {
+    static size_t set = 48 * 1024;
+    err = allow_smem(flash_mma::flash_fwd_mma<DM, false>, smem, &set);
+    if (err != cudaSuccess) return err;
+    flash_mma::flash_fwd_mma<DM, false>
+        <<<grid, flash_mma::kThreads, smem, stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o), nullptr, H,
+            Hkv, Sq, Sk, D, causal, window, scale, softcap, vec);
+  }
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dkv_d(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* dsum,
-                  void* dk, void* dv, int BH, int H, int Hkv, int Sq,
-                  int Sk, int D, int causal, int window, float scale,
-                  float softcap, cudaStream_t stream) {
-  if (D <= 16) return bwd_dkv<T, 16>(DKV_ARGS);
-  if (D <= 32) return bwd_dkv<T, 32>(DKV_ARGS);
-  if (D <= 64) return bwd_dkv<T, 64>(DKV_ARGS);
-  if (D <= 128) return bwd_dkv<T, 128>(DKV_ARGS);
-  if (D <= 256) return bwd_dkv<T, 256>(DKV_ARGS);
-  return cudaErrorInvalidValue;
+template <int DM>
+cudaError_t dq_mma(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* dsum,
+                   void* dq, int BH, int H, int Hkv, int Sq, int Sk, int D,
+                   int causal, int window, float scale, float softcap,
+                   cudaStream_t stream) {
+  using C = flash_mma::Cfg<DM>;
+  const void* in[] = {q, k, v, dout};
+  const int vec = copy_bytes(D, in, 4);
+  const size_t smem = flash_mma::dq_smem<DM>();
+  static size_t set = 48 * 1024;
+  const cudaError_t err = allow_smem(flash_mma::flash_dq_mma<DM>, smem, &set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Sq + C::BM - 1) / C::BM, C::NZ);
+  flash_mma::flash_dq_mma<DM><<<grid, flash_mma::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<bf16*>(dq), H, Hkv, Sq, Sk, D, causal, window, scale,
+      softcap, vec);
+  return cudaGetLastError();
+}
+
+template <int DM>
+cudaError_t dkv_mma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* dsum,
+                    void* dk, void* dv, int BH, int H, int Hkv, int Sq,
+                    int Sk, int D, int causal, int window, float scale,
+                    float softcap, cudaStream_t stream) {
+  using C = flash_mma::Cfg<DM>;
+  const void* in[] = {q, k, v, dout};
+  const int vec = copy_bytes(D, in, 4);
+  const size_t smem = flash_mma::dkv_smem<DM>();
+  static size_t set = 48 * 1024;
+  const cudaError_t err = allow_smem(flash_mma::flash_dkv_mma<DM>, smem,
+                                     &set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH / H * Hkv, (Sk + C::BM - 1) / C::BM, C::NZ);
+  flash_mma::flash_dkv_mma<DM><<<grid, flash_mma::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, Sq, Sk, D,
+      causal, window, scale, softcap, vec);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, DM>()) for the padded head dim DM of D
+// (the next of 16, 32, 64, 128, 256); ``none`` past 256.
+template <typename F, typename R>
+R by_dm(int D, F f, R none) {
+  if (D <= 16) return f(std::integral_constant<int, 16>());
+  if (D <= 32) return f(std::integral_constant<int, 32>());
+  if (D <= 64) return f(std::integral_constant<int, 64>());
+  if (D <= 128) return f(std::integral_constant<int, 128>());
+  if (D <= 256) return f(std::integral_constant<int, 256>());
+  return none;
 }
 
 }  // namespace
 
-// dtype (of q, k, v, o, do, dq, dk, dv): 0 = float32, 1 = bfloat16.  The
-// forward writes lse when ``lse`` is not null (flash_attention_fwd_lse)
-// and skips it otherwise (flash_attention_pallas).  window <= 0: no
-// window.  The backward is two launches: dq (B*H, Sq, D), and dk, dv per
-// KV head (B*Hkv, Sk, D).  Each returns cudaGetLastError() after its
-// launch (0 on success); the Python wrapper raises on anything else.
+// dtype (of q, k, v, o, do, dq, dk, dv): 0 = float32 (the scalar
+// kernels), 1 = bfloat16 (the tensor-core kernels).  The forward writes
+// lse when ``lse`` is not null (flash_attention_fwd_lse) and skips it
+// otherwise (flash_attention_pallas).  window <= 0: no window.  The
+// backward is two launches: dq (B*H, Sq, D), and dk, dv per KV head
+// (B*Hkv, Sk, D).  Each returns cudaGetLastError() after its launch (0 on
+// success); the Python wrapper raises on anything else.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int BH, int H, int Hkv,
                                 int Sq, int Sk, int D, int causal,
                                 int window, float scale, float softcap,
                                 int dtype, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (dtype == 0) return (int)fwd_d<float>(FWD_ARGS);
-  if (dtype == 1) return (int)fwd_d<__nv_bfloat16>(FWD_ARGS);
+  if (dtype == 0)
+    return (int)by_dm(D, [&](auto dm) {
+      return fwd<float, decltype(dm)::value>(FWD_ARGS);
+    }, cudaErrorInvalidValue);
+  if (dtype == 1)
+    return (int)by_dm(D, [&](auto dm) {
+      return fwd_mma<decltype(dm)::value>(FWD_ARGS);
+    }, cudaErrorInvalidValue);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -658,8 +718,14 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    float scale, float softcap, int dtype,
                                    void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (dtype == 0) return (int)dq_d<float>(DQ_ARGS);
-  if (dtype == 1) return (int)dq_d<__nv_bfloat16>(DQ_ARGS);
+  if (dtype == 0)
+    return (int)by_dm(D, [&](auto dm) {
+      return bwd_dq<float, decltype(dm)::value>(DQ_ARGS);
+    }, cudaErrorInvalidValue);
+  if (dtype == 1)
+    return (int)by_dm(D, [&](auto dm) {
+      return dq_mma<decltype(dm)::value>(DQ_ARGS);
+    }, cudaErrorInvalidValue);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -672,9 +738,28 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     float softcap, int dtype,
                                     void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (dtype == 0) return (int)dkv_d<float>(DKV_ARGS);
-  if (dtype == 1) return (int)dkv_d<__nv_bfloat16>(DKV_ARGS);
+  if (dtype == 0)
+    return (int)by_dm(D, [&](auto dm) {
+      return bwd_dkv<float, decltype(dm)::value>(DKV_ARGS);
+    }, cudaErrorInvalidValue);
+  if (dtype == 1)
+    return (int)by_dm(D, [&](auto dm) {
+      return dkv_mma<decltype(dm)::value>(DKV_ARGS);
+    }, cudaErrorInvalidValue);
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory, in bytes, that the launch of ``kernel`` (0
+// forward, 1 dq, 2 dk/dv) asks for at head dim D and dtype; -1 if none.
+extern "C" int flash_smem_bytes(int kernel, int dtype, int D) {
+  if (kernel < 0 || kernel > 2 || dtype < 0 || dtype > 1 || D < 1) return -1;
+  return by_dm(D, [&](auto dm) {
+    constexpr int DM = decltype(dm)::value;
+    const size_t f32[] = {fwd_smem<DM>(), dq_smem<DM>(), dkv_smem<DM>()};
+    const size_t b16[] = {flash_mma::fwd_smem<DM>(), flash_mma::dq_smem<DM>(),
+                          flash_mma::dkv_smem<DM>()};
+    return (int)(dtype == 0 ? f32 : b16)[kernel];
+  }, -1);
 }
 
 extern "C" const char* flash_error_string(int code) {

@@ -7,10 +7,12 @@
     kernel, the TPU kernel's two ``pallas_call``\\ s).
 
 The forward is one kernel with a compile-time switch for lse
-(``csrc/flash_attention.cu``, whose header note gives the design); the
-backward's dk/dv kernel loops over the G query heads of each KV head and
-writes per-KV-head dk and dv, where the TPU kernel writes them per query
-head for ``ops.py`` to group-sum.  This module is their ctypes wrappers.
+(``csrc/flash_attention.cu``, whose header note gives the design); in
+bf16 every kernel runs on the tensor cores (``csrc/flash_mma.cuh``), in
+fp32 as scalar FMA.  The backward's dk/dv kernel loops over the G query
+heads of each KV head and writes per-KV-head dk and dv, where the TPU
+kernel writes them per query head for ``ops.py`` to group-sum.  This
+module is their ctypes wrappers.
 The plain versions are in ``ref.py`` (``flash_bwd`` followed by
 ``group_sum`` for the backward): a wrapper runs its plain version for CPU
 tensors, and only for them; for CUDA tensors it launches the kernel or
@@ -66,7 +68,10 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
-        _fns.update(fwd=fwd, dq=dq, dkv=dkv, err=lib.flash_error_string)
+        lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.flash_smem_bytes.restype = ctypes.c_int
+        _fns.update(fwd=fwd, dq=dq, dkv=dkv, err=lib.flash_error_string,
+                    smem=lib.flash_smem_bytes)
     return _fns
 
 
@@ -114,6 +119,16 @@ def _check(q, k, v, n_q_heads, **rows):
     for name in ("k", "v"):
         if tensors[name].dtype != q.dtype:
             raise TypeError(f"{name} is {tensors[name].dtype}, q {q.dtype}")
+
+
+def smem_bytes(kernel: str, dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory that a launch of ``kernel`` ("fwd", "dq" or
+    "dkv") asks for at ``head_dim`` and ``dtype``."""
+    n = _lib()["smem"](("fwd", "dq", "dkv").index(kernel), DTYPES[dtype],
+                       head_dim)
+    if n < 0:
+        raise ValueError(f"no {kernel} kernel for {dtype} at D {head_dim}")
+    return n
 
 
 def _stream(t: torch.Tensor):

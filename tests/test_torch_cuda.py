@@ -419,11 +419,17 @@ def test_cuda_fitness_counts_launches(cuda_device):
 FLASH_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (B, S, H, Hkv, D, causal, window, softcap): granite-3-2b's heads, gemma
 # MQA at D 256, D 128 with a ragged S, the launcher's reduced D 40, and
-# the masks
+# the masks; then the bf16 tiling's edges: one row past a 64-row tile
+# under window and softcap, 127 rows of D 20 (8-byte copies), granite-3-2b
+# at (b), and an odd D 33 (plain loads, no cp.async)
 FLASH_CASES = [(2, 160, 32, 8, 64, True, 0, 0.0),
                (1, 96, 8, 1, 256, True, 32, 30.0),
                (1, 200, 4, 2, 128, False, 0, 0.0),
-               (2, 130, 4, 2, 40, True, 0, 30.0)]
+               (2, 130, 4, 2, 40, True, 0, 30.0),
+               (1, 65, 32, 8, 64, True, 32, 30.0),
+               (2, 127, 4, 2, 20, False, 0, 0.0),
+               (1, 4096, 32, 8, 64, True, 0, 0.0),
+               (1, 96, 4, 1, 33, True, 0, 0.0)]
 
 
 def flash_case(dev, dtype, B, S, H, Hkv, D, seed=0):
@@ -491,6 +497,56 @@ def test_cuda_flash_backward_matches_plain(cuda_device, B, S, H, Hkv, D,
     if H > Hkv:
         one_head = dk_h.reshape(B, Hkv, H // Hkv, S, D)[:, :, 0]
         assert _row_err(one_head.reshape(B * Hkv, S, D), want[1]) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window", [
+    (1, 100, 170, 4, 2, 64, True, 0), (1, 170, 100, 4, 2, 64, True, 0),
+    (2, 150, 90, 4, 1, 40, False, 0), (1, 4096, 4096, 32, 8, 64, True, 32)])
+def test_cuda_flash_unequal_lengths_and_long_window(cuda_device, B, Sq, Sk,
+                                                    H, Hkv, D, causal,
+                                                    window, dtype):
+    """Sq != Sk both ways (every query sees a key) and granite-3-2b's
+    heads at S 4096 under a 32-token window: o, lse, dq, dk and dv within
+    FLASH_RTOL of the plain versions."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    g = torch.Generator().manual_seed(3)
+    mk = lambda rows, S: torch.randn(rows, S, D, generator=g).to(  # noqa: E731
+        cuda_device, dtype)
+    q, k, v, do = mk(B * H, Sq), mk(B * Hkv, Sk), mk(B * Hkv, Sk), \
+        mk(B * H, Sq)
+    opts = dict(n_q_heads=H, causal=causal, window=window)
+    o, lse = kernel.flash_fwd(q, k, v, with_lse=True, **opts)
+    po, plse = ref.flash_fwd(q, k, v, with_lse=True, **opts)
+    dsum = (do.float() * po.float()).sum(-1)
+    got = kernel.flash_bwd(q, k, v, do, plse, dsum, **opts)
+    dq, dk_h, dv_h = ref.flash_bwd(q, k, v, do, plse, dsum, **opts)
+    want = (dq, ref.group_sum(dk_h, H, k.shape[0]),
+            ref.group_sum(dv_h, H, k.shape[0]))
+    torch.cuda.synchronize()
+    tol = FLASH_RTOL[dtype]
+    assert _row_err(o, po) <= tol
+    assert (lse - plse).abs().max() <= 1e-5 * plse.abs().max()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _row_err(a, b) <= tol, name
+
+
+def test_cuda_flash_sass_tensor_cores(cuda_device):
+    """The bf16 kernels (forward with and without lse, dq, dk/dv, every
+    head dim) hold tensor-core (HMMA) and asynchronous-copy (LDGSTS)
+    instructions; the fp32 ones, scalar FMA, hold no HMMA."""
+    from repro_torch.kernels import _build
+    if _build._tool("cuobjdump") is None:
+        pytest.skip("needs cuobjdump (CUDA toolkit) to read the SASS")
+    counts = _build.sass_counts("flash_attention")
+    mma = {f: c for f, c in counts.items() if "_mma" in f}
+    scalar = {f: c for f, c in counts.items()
+              if "flash_" in f and "_mma" not in f}
+    assert len(mma) == 20 and len(scalar) == 20, sorted(counts)
+    for f, c in mma.items():
+        assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (f, c)
+    for f, c in scalar.items():
+        assert c["HMMA"] == 0, (f, c)
 
 
 def test_cuda_flash_trainable_and_counts(cuda_device):
