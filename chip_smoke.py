@@ -2,6 +2,13 @@
 """Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timing-only [--src DIR]
+
+The second form runs phases 1, 6, 6b and 9, a GA-generation breakdown and
+two decode-tick breakdowns (fp and int8 pages) alone, on the ``repro_torch`` package under ``DIR``
+(default: this repository's ``src``): run it on the parent's tree and on
+this one in one call (parent, change, change, parent) to compare them on
+one card.
 
 Phases, each raising on failure:
 
@@ -11,14 +18,17 @@ Phases, each raising on failure:
   3. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes: gemma-2b decode (S=1) and a prefill chunk
      (S=16) crossing pages, granite-3-2b GQA, a window + softcap case and
-     the reduced fp32 shape, and the engine's decode bucket at batch 4 (8
-     rows, 4 padded).  Live-row outputs within the stated tolerance, which
-     must lie below what two known-wrong kernels give (scatter skipped,
-     last page dropped); pools bit-equal after the scatter;
+     the reduced fp32 shape, the engine's decode bucket at batch 4 (8
+     rows, 4 padded), pages of 4 rows (four pages a split of the walk) and
+     a fresh page past ``max_live_blocks``.  Live-row outputs within the
+     stated tolerance, which must lie below what two known-wrong kernels
+     give (scatter skipped, last page dropped); pools bit-equal after the
+     scatter;
   3b. the rest of the paged-attention family against its plain versions
      at the main paths' shapes: the fused update over int8 pools (gemma-2b
      decode, the decode bucket, the prefill bucket, window + softcap,
-     granite-3-2b GQA at D 64, reduced fp32), K/V and scale pools
+     granite-3-2b GQA at D 64, reduced fp32, pages of 4 rows, a fresh page
+     past the walk), K/V and scale pools (quantized in the kernel)
      bit-equal, outputs within the tolerance, which must lie below a walk
      that skips the scales and one that skips the scatter; the read-only
      walk over fp and int8 pools, pools unchanged, below a walk that drops
@@ -38,8 +48,8 @@ Phases, each raising on failure:
      lie within ``TF_RATIO`` times the bf16 oracle's own distance from an
      fp32 forward; the streams must match ``generate`` up to a first
      divergence where the oracle's top-2 gap is under twice the two paths'
-     measured logit difference.  Then wall and device time per decode
-     tick, under ``torch.profiler``;
+     measured logit difference.  Then wall and device time and launches
+     per decode tick, fp and int8 pages, under ``torch.profiler``;
   5b. gemma-2b at full width through the engine's ported options, each
      run with the launch counts set to 0 just before it: int8 pages (the
      int8 update's launches must equal n_layers x ticks, every request
@@ -49,18 +59,22 @@ Phases, each raising on failure:
      hits, copy-on-write copies through copy_page).  Over the pools the
      int8 and fp runs filled, mid-decode, the read-only walk (the public
      ``paged_attn.paged_attention``) against its plain version;
-  6. device time per call (``torch.profiler``) of the kernel, its plain
-     version and one PyTorch library call (``scaled_dot_product_attention``
-     over pre-gathered pages, a yardstick the port never calls) at the
-     decode and prefill shapes, beside the kernel's bound;
-  6b. the same for the int8 update (decode and prefill; with the wrapper's
-     quantize, and the walk alone), the read-only walk over fp and int8
-     pools (decode), against SDPA over the gathered and dequantized pages,
-     and copy_page on gemma-2b's K pool against ``index_copy_``;
+  6. device time per call (the median of CUDA events around each call,
+     behind a queued sleep) of the kernel, its plain version and one
+     PyTorch library call (``scaled_dot_product_attention`` over
+     pre-gathered pages, a yardstick the port never calls) at the decode
+     and prefill shapes, beside the kernel's bound;
+  6b. the same for the int8 update (decode and prefill), against SDPA
+     over pages gathered and dequantized beforehand and against the
+     gather, the dequantize and SDPA all timed, the read-only walk over fp
+     and int8 pools (decode), and copy_page on gemma-2b's K pool against
+     ``index_copy_``;
   7. the CATopt fitness kernel against its plain version on the card: sq
      within ``FIT_RTOL`` relative at the paper's scale (E 8192, m 2048,
      P 200) and the polish's (P 4) on a ``make_problem`` instance, at two
-     ragged shapes of ``test_recovery_vs_ref`` and at att < 0.  Two
+     ragged shapes of ``test_recovery_vs_ref``, at att < 0 and at narrow
+     ragged shapes (P 3, 5).  Every call that takes the narrow kernel
+     (P <= 8) gives rows bit-equal to the wide kernel's on the same rows.  Two
      known-wrong readings (the clip dropped, the last tile of events
      dropped) must land outside the tolerance.  The autograd backward must
      match plain autograd's gradient;
@@ -75,10 +89,10 @@ Phases, each raising on failure:
      ``SweepEngine`` over the card, every point back once and equal to
      ``sweep_vmapped``.  Then generations/s, and wall and device time per
      generation under ``torch.profiler`` with the top kernels;
-  9. device time per call of the fitness kernel, its plain version and
-     the library route (``torch.matmul`` + the clamp/sub/square/sum
-     epilogue in torch, fp32, TF32 off) at the paper's scale and the
-     polish's, beside the kernel's bound;
+  9. device time per call (CUDA events) of the fitness kernel, its
+     plain version and the library route (``torch.matmul`` + the
+     clamp/sub/square/sum epilogue in torch, fp32, TF32 off) at the
+     paper's scale and the polish's, beside the kernel's bound;
   10. the flash-attention kernels (forward without and with lse, dq,
      dk/dv; bf16 on the tensor cores, fp32 scalar) against their plain
      versions, fp32 and bf16: granite-3-2b's heads at both training
@@ -310,6 +324,15 @@ def phase_kernel_vs_plain(torch, dev):
         ("reduced fp32 D=16 G=2", dict(B=3, S=5, starts=[3, 0, 9],
                                        ns=[5, 2, 1], H=4, Hkv=2, D=16, BS=4,
                                        dtype=f32), dict(window=6)),
+        # the split walk: four 4-row pages a split, 11 to 16 pages a request
+        ("gemma-2b decode B=4, block 4 (more pages than splits)", dict(
+            B=4, S=1, starts=[40, 47, 33, 63], ns=[1, 1, 1, 1], H=8, Hkv=1,
+            D=256, BS=4, dtype=bf16), {}),
+        # request 0's rows at 32..35 land on page 2, past the walk's 2
+        # pages: written by the last split, read by none
+        ("granite-3-2b GQA prefill, a fresh page past max_live_blocks",
+         dict(B=2, S=16, starts=[20, 2], ns=[16, 1], **granite),
+         dict(live=2)),
     ]
     worst = 0.0
     for i, (name, shape, extra) in enumerate(cases):
@@ -417,6 +440,12 @@ def phase_family_vs_plain(torch, dev):
         ("int8 reduced fp32 D=16 G=2", dict(
             B=3, S=5, starts=[3, 0, 9], ns=[5, 2, 1], H=4, Hkv=2, D=16, BS=4,
             dtype=f32), dict(window=6)),
+        ("int8 gemma-2b decode B=4, block 4 (more pages than splits)", dict(
+            B=4, S=1, starts=[40, 47, 33, 63], ns=[1, 1, 1, 1], H=8, Hkv=1,
+            D=256, BS=4, dtype=bf16), {}),
+        ("int8 granite-3-2b GQA prefill, a fresh page past max_live_blocks",
+         dict(B=2, S=16, starts=[20, 2], ns=[16, 1], **granite),
+         dict(live=2)),
     ]
     for i, (name, shape, extra) in enumerate(cases):
         c = quantized(torch, dict(make_case(torch, dev, 200 + i, **shape),
@@ -461,6 +490,9 @@ def phase_family_vs_plain(torch, dev):
         ("reduced fp32 D=16 G=2", dict(
             B=3, S=5, starts=[3, 0, 9], ns=[5, 2, 1], H=4, Hkv=2, D=16, BS=4,
             dtype=f32), dict(window=6)),
+        ("gemma-2b decode B=4, block 4 (more pages than splits)", dict(
+            B=4, S=1, starts=[40, 47, 33, 63], ns=[1, 1, 1, 1], H=8, Hkv=1,
+            D=256, BS=4, dtype=bf16), {}),
     ]
     for i, (name, shape, extra) in enumerate(cases):
         c = quantized(torch, dict(make_case(torch, dev, 300 + i, **shape),
@@ -658,9 +690,10 @@ def teacher_forced(torch, dev, cfg, params, seq, P, BS):
             (bf16 - f32).abs().max().item())
 
 
-def tick_breakdown(torch, cfg, params, prompts, G, kw, ticks=8):
+def tick_breakdown(torch, cfg, params, prompts, G, kw, ticks=8, label=""):
     """Wall and device busy time per decode tick (4 requests decoding),
-    and the kernels that take the most device time."""
+    the launches on the card per tick, and the kernels that take the most
+    device time.  Returns {wall_ms, busy_ms, launches}."""
     from repro_torch.serving import PagedServingEngine
     eng = PagedServingEngine(cfg, params, **kw)
     for row in prompts:
@@ -675,19 +708,22 @@ def tick_breakdown(torch, cfg, params, prompts, G, kw, ticks=8):
     wall = (time.perf_counter() - t0) / ticks * 1e3
     rows = profiled(torch, eng.step, ticks)
     busy = sum(r[0] for r in rows) / ticks / 1e3
-    log(f"[tick] gemma-2b decode B={len(prompts)}: wall {wall:.3f} ms/tick, "
-        f"device busy {busy:.3f} ms/tick, idle share {1 - busy / wall:.3f}")
+    launches = sum(r[1] for r in rows) / ticks
+    log(f"[tick] gemma-2b{label} decode B={len(prompts)}: wall {wall:.3f} "
+        f"ms/tick, device busy {busy:.3f} ms/tick, idle share "
+        f"{1 - busy / wall:.3f}, {launches:g} launches on the card a tick")
     for us, n, key in rows[:12]:
         log(f"[tick]   {us / ticks / 1e3:.4f} ms x{n // ticks}  {key[:90]}")
+    return dict(wall_ms=wall, busy_ms=busy, launches=launches)
 
 
-def phase_full_width(torch, dev):
+def gemma_serving(torch, dev):
+    """gemma-2b at full width with random weights from seed 0, the output
+    projections scaled (below), 4 prompts of 32 tokens and the engine's
+    arguments for 32 generated tokens in pages of 16: phase 5's setup."""
     import numpy as np
     from repro_torch.config import get_config
-    from repro_torch.kernels.paged_attention import kernel
-    from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
-    from repro_torch.serving import PagedServingEngine
     cfg = get_config("gemma-2b")
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device=dev)
@@ -708,6 +744,16 @@ def phase_full_width(torch, dev):
                                                 dtype=np.int32)
     kw = dict(max_slots=B, block_size=BS, max_blocks_per_seq=-(-(P + G) // BS),
               device=dev)
+    return cfg, params, prompts, kw
+
+
+def phase_full_width(torch, dev):
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import PagedServingEngine
+    cfg, params, prompts, kw = gemma_serving(torch, dev)
+    B, P = prompts.shape
+    G, BS = 32, kw["block_size"]
     warm = PagedServingEngine(cfg, params, **kw)        # cuBLAS, build, caches
     warm.submit(prompts[0], 4)
     warm.run_to_completion()
@@ -771,6 +817,8 @@ def phase_full_width(torch, dev):
                                  f"token {t} with a clear top-2 gap {gap}")
     log(f"[full] {exact}/{B} streams identical to generate")
     tick_breakdown(torch, cfg, params, prompts, G, kw)
+    tick_breakdown(torch, cfg, params, prompts, G,
+                   dict(kw, kv_dtype="int8"), label=" int8 pages")
     return dict(launches=launches, tokens_per_s=n_tok / wall, cfg=cfg,
                 params=params, prompts=prompts, tf_err=tf_err)
 
@@ -983,19 +1031,41 @@ def phase_full_width_options(torch, dev, full, worst):
 # phase 6: timing
 # ---------------------------------------------------------------------------
 
-def device_ms(torch, fn, reps=50, warmup=5, part=None):
+def device_ms(torch, fn, reps=50, warmup=5):
     """Device milliseconds per call: the summed device time of every
     kernel and copy ``fn`` puts on the card (``torch.profiler``), over
-    ``reps`` calls.  The host's time to issue them is not in it.  With
-    ``part`` (a substring of a kernel's name), also the share of those
-    kernels: (total, part)."""
+    ``reps`` calls.  The host's time to issue them is not in it."""
     for _ in range(warmup):
         fn()
     rows = profiled(torch, fn, reps)
-    total = sum(r[0] for r in rows) / reps / 1e3
-    if part is None:
-        return total
-    return total, sum(r[0] for r in rows if part in r[2]) / reps / 1e3
+    return sum(r[0] for r in rows) / reps / 1e3
+
+
+def card_ms(torch, fn, reps=50, label=""):
+    """Device milliseconds per call: the median of ``event_ms`` (CUDA
+    events around each call, behind a queued sleep).  The host must issue
+    every call inside the sleep, and the card's launch queue must hold
+    them all, so a call slow to issue or made of many launches (a plain
+    version) is timed over fewer calls: as many as the host issues in 20
+    ms, and a third as many again each time the queue did not hold, down
+    to 2."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    issue_s = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    reps = max(2, min(reps, int(0.02 / issue_s)))
+    while True:
+        med, _, _, held = event_ms(torch, fn, reps)
+        if held:
+            return med
+        if reps == 2:
+            raise AssertionError(f"timing {label}: the queue never held")
+        log(f"[time] {label}: the card drained its queue before the host "
+            f"issued the last of {reps} calls; again with fewer")
+        reps = max(2, reps // 3)
 
 
 def bound(torch, c, *, fresh=True, row_bytes=None):
@@ -1033,7 +1103,6 @@ def bound(torch, c, *, fresh=True, row_bytes=None):
 
 
 def phase_timing(torch, dev):
-    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import kernel, ref
     gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=torch.bfloat16)
     shapes = {"decode": dict(B=4, S=1, starts=[48, 52, 60, 63],
@@ -1050,60 +1119,59 @@ def phase_timing(torch, dev):
                               c["pos"], window=FULL, softcap=0.0,
                               max_live_blocks=c["live"])
 
-        ms = device_ms(torch, run(kernel.paged_attention_update))
-        plain_ms = device_ms(torch, run(ref.unified_attention_update))
-        # the library yardstick: SDPA on the same keys, pages pre-gathered
-        B, S, H, D = c["q"].shape
-        L = c["live"] * shape["BS"]
-        k = kp[c["tables"][:, :c["live"]].long()].reshape(B, L, 1, D)
-        v = vp[c["tables"][:, :c["live"]].long()].reshape(B, L, 1, D)
-        qpos = c["pos"].long()
-        mask = (torch.arange(L, device=dev)[None, None, :]
-                <= qpos[:, :, None])[:, None]              # (B, 1, S, L)
-        qt = c["q"].transpose(1, 2)
-        kt = k.transpose(1, 2).expand(B, H, L, D)           # MQA: one head
-        vt = v.transpose(1, 2).expand(B, H, L, D)
-        library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask))
+        ms = card_ms(torch, run(kernel.paged_attention_update), label=label)
+        plain_ms = card_ms(torch, run(ref.unified_attention_update),
+                           label=label)
+        library_ms = card_ms(torch, library_sdpa(torch, c, kp, vp),
+                             label=label)
         bound_ms, bound_by = bound(torch, c)
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[time] {label} {tuple(c['q'].shape)} bf16, device time per "
+        log(f"[time] {label} {tuple(c['q'].shape)} bf16, CUDA events per "
             f"call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
     return out
 
 
-def library_sdpa(torch, c, kp, vp, ks=None, vs=None):
+def library_sdpa(torch, c, kp, vp, ks=None, vs=None, gather=False):
     """The library yardstick of a walk: one ``scaled_dot_product_attention``
     call over the request's pages, gathered (and dequantized to q's dtype
-    for int8 pools) beforehand, outside the timed call."""
+    for int8 pools) beforehand, outside the timed call; with ``gather``,
+    the gather and the dequantize inside the timed call as well."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ref
     B, S, H, D = c["q"].shape
     BS = kp.shape[1]
     L = c["live"] * BS
     tab = c["tables"][:, :c["live"]].long()
-    if ks is not None:
-        k, v = ref.dequantize(kp[tab], ks[tab]), ref.dequantize(vp[tab],
-                                                                vs[tab])
-    else:
-        k, v = kp[tab], vp[tab]
-    k = k.to(c["q"].dtype).reshape(B, L, 1, D)
-    v = v.to(c["q"].dtype).reshape(B, L, 1, D)
-    mask = (torch.arange(L, device=k.device)[None, None, :]
+    mask = (torch.arange(L, device=kp.device)[None, None, :]
             <= c["pos"].long()[:, :, None])[:, None]         # (B, 1, S, L)
     qt = c["q"].transpose(1, 2)
-    kt = k.transpose(1, 2).expand(B, H, L, D)                 # MQA: one head
-    vt = v.transpose(1, 2).expand(B, H, L, D)
+
+    def pages():
+        if ks is not None:
+            k, v = ref.dequantize(kp[tab], ks[tab]), ref.dequantize(
+                vp[tab], vs[tab])
+        else:
+            k, v = kp[tab], vp[tab]
+        k = k.to(c["q"].dtype).reshape(B, L, 1, D).transpose(1, 2)
+        v = v.to(c["q"].dtype).reshape(B, L, 1, D).transpose(1, 2)
+        return k.expand(B, H, L, D), v.expand(B, H, L, D)   # MQA: one head
+
+    if gather:
+        return lambda: F.scaled_dot_product_attention(qt, *pages(),
+                                                      attn_mask=mask)
+    kt, vt = pages()
     return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=mask)
 
 
 def phase_family_timing(torch, dev):
-    """Device time per call (``torch.profiler``) of the int8 update, the
-    read-only walk and copy_page at their full-width paths' shapes, beside
-    the bound, the plain version and a library call."""
+    """Device time per call (CUDA events) of the int8 update, the read-only
+    walk and copy_page at their full-width paths' shapes, beside the bound,
+    the plain version and a library call (the int8 update: SDPA on pages
+    gathered and dequantized beforehand, and with the gather and the
+    dequantize timed too)."""
     from repro_torch.kernels.paged_attention import kernel, ref
     gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=torch.bfloat16)
     shapes = {"decode": dict(B=4, S=1, starts=[48, 52, 60, 63],
@@ -1122,20 +1190,22 @@ def phase_family_timing(torch, dev):
                               v_scale=vs)
 
         D = shape["D"]
-        ms, walk_ms = device_ms(torch, run(kernel.paged_attention_update),
-                                part="paged_kernel")
-        row = dict(ms=ms, kernel_only_ms=walk_ms,
-                   plain_ms=device_ms(torch,
-                                      run(ref.unified_attention_update)),
-                   library_ms=device_ms(torch, library_sdpa(
-                       torch, c, kq, vq, ks, vs)))
+        tag = f"int8 {label}"
+        row = dict(ms=card_ms(torch, run(kernel.paged_attention_update),
+                              label=tag),
+                   plain_ms=card_ms(torch, run(ref.unified_attention_update),
+                                    label=tag),
+                   library_ms=card_ms(torch, library_sdpa(
+                       torch, c, kq, vq, ks, vs), label=tag),
+                   library_gather_ms=card_ms(torch, library_sdpa(
+                       torch, c, kq, vq, ks, vs, gather=True), label=tag))
         row["bound_ms"], row["bound_by"] = bound(torch, c, row_bytes=D + 4)
-        out[f"int8 {label}"] = row
+        out[tag] = row
         log(f"[time] int8 update {label} {tuple(c['q'].shape)} bf16 q, int8 "
-            f"pools, device time per call: kernel {row['ms']:.4f} ms (the "
-            f"CUDA walk {walk_ms:.4f} ms, the wrapper's quantize the rest), "
-            f"plain {row['plain_ms']:.4f} ms, "
-            f"sdpa on dequantized pages {row['library_ms']:.4f} ms, bound "
+            f"pools, CUDA events per call: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa on dequantized pages "
+            f"{row['library_ms']:.4f} ms, gather + dequantize + sdpa "
+            f"{row['library_gather_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     c = quantized(torch, make_case(torch, dev, 8, **shapes["decode"]))
     for quant in (False, True):
@@ -1147,17 +1217,19 @@ def phase_family_timing(torch, dev):
                               window=FULL, softcap=0.0,
                               max_live_blocks=c["live"], **kw)
 
-        row = dict(ms=device_ms(torch, run(kernel.paged_attention)),
-                   plain_ms=device_ms(torch, run(ref.paged_attention)),
-                   library_ms=device_ms(torch, library_sdpa(
-                       torch, c, kp, vp, *kw.values())))
+        tag = f"read-only {'int8' if quant else 'fp'}"
+        row = dict(ms=card_ms(torch, run(kernel.paged_attention), label=tag),
+                   plain_ms=card_ms(torch, run(ref.paged_attention),
+                                    label=tag),
+                   library_ms=card_ms(torch, library_sdpa(
+                       torch, c, kp, vp, *kw.values()), label=tag))
         row["bound_ms"], row["bound_by"] = bound(
             torch, c, fresh=False,
             row_bytes=shapes["decode"]["D"] + 4 if quant else None)
         label = "int8" if quant else "fp"
         out[f"read-only {label}"] = row
         log(f"[time] read-only walk, {label} pools, decode "
-            f"{tuple(c['q'].shape)} bf16 q, device time per call: kernel "
+            f"{tuple(c['q'].shape)} bf16 q, CUDA events per call: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
             f"({row['bound_by']})")
@@ -1168,14 +1240,16 @@ def phase_family_timing(torch, dev):
     ids = torch.tensor([3, 7], dtype=torch.int32, device=dev)
     dst = torch.tensor([7], device=dev)
     page_bytes = pool[0, 0].numel() * pool.element_size()
-    row = dict(ms=device_ms(torch, lambda: kernel.copy_page(pool, ids)),
-               plain_ms=device_ms(torch, lambda: ref.copy_page(pool, 3, 7)),
-               library_ms=device_ms(torch, lambda: pool.index_copy_(
-                   1, dst, pool[:, 3:4])),
+    row = dict(ms=card_ms(torch, lambda: kernel.copy_page(pool, ids),
+                          label="copy_page"),
+               plain_ms=card_ms(torch, lambda: ref.copy_page(pool, 3, 7),
+                                label="copy_page"),
+               library_ms=card_ms(torch, lambda: pool.index_copy_(
+                   1, dst, pool[:, 3:4]), label="copy_page"),
                bound_ms=2 * 18 * page_bytes / HBM_BYTES_PER_S * 1e3,
                bound_by="bytes")
     out["copy_page"] = row
-    log(f"[time] copy_page bf16 pool (18, 17, 16, 1, 256), device time per "
+    log(f"[time] copy_page bf16 pool (18, 17, 16, 1, 256), CUDA events per "
         f"call: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"index_copy_ {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.6f} ms (bytes)")
@@ -1796,7 +1870,9 @@ def fitness_cases(torch, dev, problem):
               problem.attachment, problem.limit)]
     for E_, m_, P_, att, limit in ((500, 300, 37, 5.0, 20.0),
                                    (1024, 256, 8, 5.0, 20.0),
-                                   (500, 300, 37, -4.0, 124.0)):
+                                   (500, 300, 37, -4.0, 124.0),
+                                   (500, 300, 3, -4.0, 124.0),
+                                   (777, 130, 5, 45.0, 20.0)):
         il_, w_, t_ = recovery_case(E_, m_, P_)
         cases.append((f"E {E_} m {m_} P {P_} att {att:g} limit {limit:g}",
                       il_, w_, t_, att, limit))
@@ -1825,10 +1901,23 @@ def phase_fitness_vs_plain(torch, dev, problem):
                  "last event tile dropped": rel(ref.fitness_sq(
                      il[:cut], w, target[:cut], att, limit))}
         finite = bool(torch.isfinite(got).all())
-        log(f"[fitness] {name}: max|kernel - plain|/|plain| = {err:.3e} "
-            f"(tol {FIT_RTOL:g}; a wrong kernel: " + ", ".join(
+        # the narrow kernel's rows against the wide kernel's, bit for bit:
+        # the same rows inside a population too wide for the narrow one (a
+        # CPU rehearsal runs the plain version, which is not row-local)
+        route = kernel.fitness_plan(E, il.shape[1], w.shape[0]).route
+        same = ""
+        if route == "narrow" and dev.type == "cuda":
+            big = torch.cat([w, w.flip(0).repeat(kernel.P_NARROW, 1)])
+            wide = kernel.fitness_sq(il, big, target, att, limit)[:len(w)]
+            sync(torch, dev)
+            if not torch.equal(got, wide):
+                raise AssertionError(f"narrow fitness kernel differs from "
+                                     f"the wide one: {name}")
+            same = ", its rows bit-equal to the wide kernel's"
+        log(f"[fitness] {name} ({route}): max|kernel - plain|/|plain| = "
+            f"{err:.3e} (tol {FIT_RTOL:g}; a wrong kernel: " + ", ".join(
                 f"{k} {v:.3e}" for k, v in wrong.items())
-            + f"), finite {finite}")
+            + f"), finite {finite}{same}")
         if not (err <= FIT_RTOL and finite):
             raise AssertionError(f"fitness kernel disagrees with plain: "
                                  f"{name}")
@@ -1867,8 +1956,9 @@ def phase_fitness_vs_plain(torch, dev, problem):
 # ---------------------------------------------------------------------------
 
 def ga_breakdown(torch, dev, problem, cfg, gens=5):
-    """Wall and device busy time per GA generation at the paper's scale,
-    and the kernels that take the most device time."""
+    """Wall and device busy time and launches on the card per GA
+    generation at the paper's scale, and the kernels that take the most
+    device time.  Returns {wall_ms, busy_ms, launches}."""
     from repro_torch.core import catopt
     gen = torch.Generator(device=dev).manual_seed(9)
     draws = catopt.Draws(gen, cfg.pop_size, problem.n_dims, cfg, dev)
@@ -1890,11 +1980,14 @@ def ga_breakdown(torch, dev, problem, cfg, gens=5):
         wall = (time.perf_counter() - t0) / gens * 1e3
         rows = profiled(torch, step, gens)
     busy = sum(r[0] for r in rows) / gens / 1e3
+    launches = sum(r[1] for r in rows) / gens
     log(f"[catopt] generation (P {cfg.pop_size}, polish {cfg.polish_k} x "
         f"{cfg.polish_steps}): wall {wall:.3f} ms, device busy {busy:.3f} "
-        f"ms, idle share {1 - busy / wall:.3f}")
+        f"ms, idle share {1 - busy / wall:.3f}, {launches:g} launches on "
+        f"the card")
     for us, n, key in rows[:10]:
         log(f"[catopt]   {us / gens / 1e3:.4f} ms x{n // gens}  {key[:90]}")
+    return dict(wall_ms=wall, busy_ms=busy, launches=launches)
 
 
 def mc_price(pt):
@@ -2038,6 +2131,14 @@ def fitness_bound(E, m, P):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_route(kernel, il, w):
+    """Which fitness kernel a call takes: "narrow" or "wide" (a tree
+    without the narrow kernel: "wide")."""
+    if not hasattr(kernel, "fitness_plan"):
+        return "wide"
+    return kernel.fitness_plan(il.shape[0], il.shape[1], w.shape[0]).route
+
+
 def phase_fitness_timing(torch, dev, problem):
     from repro_torch.kernels.recovery import kernel, ref
     il, target = problem.industry_losses, problem.target_recovery
@@ -2052,16 +2153,18 @@ def phase_fitness_timing(torch, dev, problem):
             return torch.square(torch.clamp(loss - att, 0.0, limit)
                                 - target).sum(-1)
 
-        ms = device_ms(torch, lambda: kernel.fitness_sq(il, w, target, att,
-                                                        limit))
-        plain_ms = device_ms(torch, lambda: ref.fitness_sq(il, w, target,
-                                                           att, limit))
-        library_ms = device_ms(torch, library)
+        tag = f"fitness {label}"
+        ms = card_ms(torch, lambda: kernel.fitness_sq(il, w, target, att,
+                                                      limit), label=tag)
+        plain_ms = card_ms(torch, lambda: ref.fitness_sq(il, w, target, att,
+                                                         limit), label=tag)
+        library_ms = card_ms(torch, library, label=tag)
         bound_ms, bound_by = fitness_bound(il.shape[0], il.shape[1], P)
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
         log(f"[time] fitness {label} E {il.shape[0]} m {il.shape[1]} P {P} "
-            f"fp32, device time per call: kernel {ms:.4f} ms, plain "
+            f"fp32 ({kernel_route(kernel, il, w)}), CUDA events per call: "
+            f"kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, matmul + epilogue {library_ms:.4f} ms, "
             f"bound {bound_ms:.6f} ms ({bound_by})")
     return out
@@ -2382,8 +2485,54 @@ def phase_wkv_timing(torch, dev, real):
     return out
 
 
+def timing_main(src):
+    """``--timing-only [--src DIR]``: phases 1, 6, 6b and 9, the GA
+    generation's breakdown and the fp and int8 decode ticks' alone, on the
+    ``repro_torch`` package under ``DIR`` (default: this repository's
+    ``src``), building only the kernels they time.  Run it on two trees in
+    one call (parent, change, change, parent) to compare them on one card.
+    The last line is {"timing": ..., "src": ..., "gpu": ...}."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+    from repro_torch.core.catopt import make_problem
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gpu = phase_gpu_info()
+    log(f"[timing] repro_torch from {os.path.dirname(repro_torch.__file__)}")
+    _build.build(["paged_attention", "copy_page", "fitness"])
+    timing = phase_timing(torch, dev)
+    timing.update(phase_family_timing(torch, dev))
+    problem = make_problem(seed=0, n_events=PAPER["E"], n_dims=PAPER["m"],
+                           device=dev)
+    timing.update({f"fitness {k}": v for k, v in
+                   phase_fitness_timing(torch, dev, problem).items()})
+    from repro_torch.core.catopt import GAConfig
+    timing["generation"] = ga_breakdown(torch, dev, problem, GAConfig(),
+                                        gens=20)
+    del problem
+    cfg, params, prompts, kw = gemma_serving(torch, dev)
+    for label, extra in (("fp", {}), ("int8", dict(kv_dtype="int8"))):
+        timing[f"tick {label}"] = tick_breakdown(
+            torch, cfg, params, prompts, 32, dict(kw, **extra),
+            label=f" {label} pages")
+    log(json.dumps({"timing": timing, "src": os.path.abspath(src),
+                    "gpu": gpu}))
+    return 0
+
+
 def main():
     import torch
+    if "--timing-only" in sys.argv[1:]:
+        args = sys.argv[1:]
+        src = (args[args.index("--src") + 1] if "--src" in args
+               else os.path.join(HERE, "src"))
+        return timing_main(src)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2413,7 +2562,8 @@ def main():
                            device=dev)
     fit_abs, fit_rel = phase_fitness_vs_plain(torch, dev, problem)
     fit_launches, _ = phase_catopt(torch, dev, problem)
-    fit = phase_fitness_timing(torch, dev, problem)["paper"]
+    fit_time = phase_fitness_timing(torch, dev, problem)
+    fit = fit_time["paper"]
     del problem
     cfg_rw, rw_params, rw_toks = rwkv_model(torch, dev)
     real = layer0_inputs(torch, cfg_rw, rw_params, rw_toks)
@@ -2456,7 +2606,7 @@ def main():
         "max_rel_err": fit_rel,
         "ms": fit["ms"], "plain_ms": fit["plain_ms"],
         "bound_ms": fit["bound_ms"], "bound_by": fit["bound_by"],
-        "library_ms": fit["library_ms"]},
+        "library_ms": fit["library_ms"], "polish": fit_time["polish"]},
         entry("wkv6", WKV_SOURCE, WKV_REPLACES, wkv_launches, wkv_abs,
               dict(wkv, max_row_err=wkv_row,
                    library="none: no single PyTorch call computes the "

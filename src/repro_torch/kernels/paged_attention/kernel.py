@@ -11,11 +11,14 @@ family in ``repro/kernels/paged_attention/kernel.py``:
     in every layer of a stacked pool (copy-on-write).
 
 The walks are one kernel (``csrc/paged_attention.cu``, whose header note
-gives the design) with two compile-time switches, the scatter and the int8
-pools; the copy is ``csrc/copy_page.cu``.  This module is their ctypes
-wrappers.  The plain versions are in ``ref.py``: a wrapper runs its plain
-version for CPU tensors, and only for them; for CUDA tensors it launches
-the kernel or raises.
+gives the design) with two compile-time switches, the scatter (with the
+int8 quantize of the fresh rows) and the int8 pools; the copy is
+``csrc/copy_page.cu``.  This module is their ctypes wrappers.  The walk
+splits each (request, kv head) over its pages: :func:`walk_plan` sizes the
+split from host integers alone, and a split walks a fixed run of keys, so a
+row's result never depends on the batch around it.  The plain versions
+are in ``ref.py``: a wrapper runs its plain version for CPU tensors, and
+only for them; for CUDA tensors it launches the kernel or raises.
 
 Launch counts, one per kernel variant the main paths run (a wrapper adds
 one where it launches, none for the plain version), so a run can show that
@@ -29,7 +32,7 @@ its path went through the kernels; the caller resets and reads them:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -37,8 +40,49 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref as _ref
 
 HEAD_DIMS = (16, 64, 256)
-MAX_BLOCK_SIZE = 64          # shared memory: (16 + 2*BS) * (D + 1) fp32
+MAX_BLOCK_SIZE = 64          # softmax: a warp's two keys a lane
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # q, out, fp pools
+ROWS_PER_TILE = 16           # query rows a block: kRows in the kernel
+KEYS_PER_SPLIT = 16          # a split walks max(1, 16 // block_size) pages
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_YZ = 65535
+
+
+class WalkPlan(NamedTuple):
+    """One launch of the walk: ``grid`` (n_tiles * n_split, Hkv, B) blocks
+    of ``ROWS_PER_TILE`` query rows and ``pages_per_split`` pages each;
+    with ``n_split`` > 1 a float32 workspace of ``workspace`` floats (each
+    split's acc, m and l) and ``counters`` int32 counters, zero between
+    launches."""
+    n_tiles: int
+    nb_live: int
+    pages_per_split: int
+    n_split: int
+    grid: Tuple[int, int, int]
+    workspace: int
+    counters: int
+
+
+def walk_plan(B: int, S: int, G: int, Hkv: int, D: int, block_size: int,
+              max_live_blocks: int, MB: int) -> WalkPlan:
+    """The split and the grid of a walk, from host integers only (no device
+    sync): the walk covers ``nb_live = clamp(max_live_blocks, 1, MB)``
+    logical blocks, ``pages_per_split = max(1, KEYS_PER_SPLIT //
+    block_size)`` of them a split, so a split's boundaries depend on the
+    block size alone.  Raises ValueError for a grid the card cannot
+    launch."""
+    nb_live = max(1, min(int(max_live_blocks), int(MB)))
+    pps = max(1, KEYS_PER_SPLIT // int(block_size))
+    n_split = -(-nb_live // pps)
+    n_tiles = -(-(S * G) // ROWS_PER_TILE)
+    grid = (n_tiles * n_split, Hkv, B)
+    if grid[0] > MAX_GRID_X or Hkv > MAX_GRID_YZ or B > MAX_GRID_YZ:
+        raise ValueError(f"walk grid {grid} beyond the card's limits")
+    slots = n_tiles * n_split * Hkv * B if n_split > 1 else 0
+    return WalkPlan(n_tiles=n_tiles, nb_live=nb_live, pages_per_split=pps,
+                    n_split=n_split, grid=grid,
+                    workspace=slots * ROWS_PER_TILE * (D + 2),
+                    counters=n_tiles * Hkv * B if n_split > 1 else 0)
 
 launches = 0
 int8_launches = 0
@@ -47,20 +91,38 @@ copy_launches = 0
 
 _fns: Dict[str, object] = {}
 _copy_errors: Dict[torch.device, torch.Tensor] = {}
+_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _walk_fn():
     if "walk" not in _fns:
         lib = _build.library("paged_attention")
         fn = lib.paged_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                        + [ctypes.c_float, ctypes.c_float]
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
+        lib.paged_attention_rows_per_tile.restype = ctypes.c_int
+        if lib.paged_attention_rows_per_tile() != ROWS_PER_TILE:
+            raise RuntimeError("kernel.py and csrc/paged_attention.cu "
+                               "disagree on the query rows per tile")
         _fns["walk"] = (fn, lib.paged_attention_error_string)
     return _fns["walk"]
+
+
+def _counter_buffer(device: torch.device, stream: int, n: int):
+    """The split walk's counters on ``device`` for launches on ``stream``:
+    zero between launches (the kernel's last block resets its own), grown
+    with zeros when a launch needs more."""
+    key = (device, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _copy_fn():
@@ -132,30 +194,40 @@ def _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions, *,
         if name in tensors and tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              f"(the kernel moves 16-byte vectors)")
+    walk_plan(B, S, H // Hkv, Hkv, D, BS, block_tables.shape[1],
+              block_tables.shape[1])          # the grid at the deepest walk
 
 
 def _launch(q, fresh, k_pool, v_pool, scales, block_tables, positions, *,
             window, softcap, max_live_blocks):
-    """One launch of the walk.  ``fresh``: (k_new, v_new, ks_new, vs_new)
-    in the pools' types, or None for the read-only walk; ``scales``:
-    (k_scale, v_scale) with int8 pools, else None.  Returns out."""
+    """One launch of the walk.  ``fresh``: (k_new, v_new) in q's dtype
+    (the kernel quantizes them for int8 pools), or None for the read-only
+    walk; ``scales``: (k_scale, v_scale) with int8 pools, else None.
+    Returns out."""
     B, S, H, D = q.shape
     NB, BS, Hkv, _ = k_pool.shape
     MB = block_tables.shape[1]
+    plan = walk_plan(B, S, H // Hkv, Hkv, D, BS, max_live_blocks, MB)
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    kn, vn, ksn, vsn = fresh if fresh is not None else (None,) * 4
+    kn, vn = fresh if fresh is not None else (None, None)
     ks, vs = scales if scales is not None else (None, None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = counters = None
+    if plan.n_split > 1:
+        ws = torch.empty(plan.workspace, dtype=torch.float32,
+                         device=q.device)
+        counters = _counter_buffer(q.device, stream, plan.counters)
     fn, errstr = _walk_fn()
-    err = fn(q.data_ptr(), ptr(kn), ptr(vn), ptr(ksn), ptr(vsn),
-             k_pool.data_ptr(), v_pool.data_ptr(), ptr(ks), ptr(vs),
-             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-             B, S, H, Hkv, D, BS, MB, max(1, min(int(max_live_blocks), MB)),
-             int(window), D ** -0.5, float(softcap), Q_DTYPES[q.dtype],
-             int(scales is not None), int(fresh is not None),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(q.data_ptr(), ptr(kn), ptr(vn), k_pool.data_ptr(),
+             v_pool.data_ptr(), ptr(ks), ptr(vs), block_tables.data_ptr(),
+             positions.data_ptr(), out.data_ptr(), ptr(ws), ptr(counters),
+             B, S, H, Hkv, D, BS, MB, plan.nb_live, plan.n_split,
+             plan.pages_per_split, int(window), D ** -0.5, float(softcap),
+             Q_DTYPES[q.dtype], int(scales is not None),
+             int(fresh is not None), stream)
     if err:
         raise RuntimeError(f"paged attention launch failed: "
                            f"{errstr(err).decode()} ({err})")
@@ -176,11 +248,11 @@ def paged_attention_update(q: torch.Tensor, k_new: torch.Tensor,
     int8 with ``k_scale``/``v_scale`` (NB, BS, Hkv) fp32 scale pools;
     block_tables (B, MB) and positions (B, S) int32, -1 marking padded
     rows.  The walk covers at most ``max_live_blocks`` logical blocks per
-    request.  With int8 pools the fresh rows are quantized here by
-    ``ref.quantize_rows`` and the kernel scatters the int8 rows and their
-    scales.  Returns (out (B, S, H, D), k_pool, v_pool), plus (k_scale,
-    v_scale) with int8 pools; the pools are updated in place.  Never
-    synchronises with the host.
+    request.  With int8 pools the kernel quantizes the fresh rows itself,
+    bit-equal to ``ref.quantize_rows``, and scatters the int8 rows and
+    their scales: one launch, no other.  Returns (out (B, S, H, D),
+    k_pool, v_pool), plus (k_scale, v_scale) with int8 pools; the pools
+    are updated in place.  Never synchronises with the host.
     """
     global launches, int8_launches
     if q.device.type == "cpu":
@@ -192,14 +264,9 @@ def paged_attention_update(q: torch.Tensor, k_new: torch.Tensor,
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k_new, v_new, k_pool, v_pool, block_tables, positions,
            k_scale=k_scale, v_scale=v_scale)
-    if k_scale is None:
-        fresh, scales = (k_new, v_new, None, None), None
-    else:
-        kq, ks = _ref.quantize_rows(k_new)
-        vq, vs = _ref.quantize_rows(v_new)
-        fresh, scales = (kq, vq, ks, vs), (k_scale, v_scale)
-    out = _launch(q, fresh, k_pool, v_pool, scales, block_tables, positions,
-                  window=window, softcap=softcap,
+    scales = None if k_scale is None else (k_scale, v_scale)
+    out = _launch(q, (k_new, v_new), k_pool, v_pool, scales, block_tables,
+                  positions, window=window, softcap=softcap,
                   max_live_blocks=max_live_blocks)
     if q.numel():
         if k_scale is None:

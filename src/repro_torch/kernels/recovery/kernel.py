@@ -5,7 +5,11 @@ The kernel (``csrc/fitness.cu``, whose header note gives the design)
 computes ``sq[p] = sum_e (clip(IL[e] . w[p] - att, 0, limit) - target[e])^2``
 for a whole population: a matrix product with a clip, square and
 reduce-over-events epilogue, and a second pass that adds the per-tile
-partials in a fixed order.  This module is its ctypes wrapper.  The plain
+partials in a fixed order.  Populations of at most ``P_NARROW`` rows (the
+GA's polish) take a narrow kernel that streams IL once with P dot products
+a thread; it gives each row the same sq, bit for bit, as the wide one.
+:func:`fitness_plan` says which runs.  This module is their ctypes
+wrapper.  The plain
 version is ``ref.fitness_sq``: the wrapper runs it for CPU tensors, and
 only for them; for CUDA tensors it launches the kernel or raises.
 
@@ -16,6 +20,7 @@ kernel.  The caller resets and reads it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -24,10 +29,37 @@ from repro_torch.kernels.recovery import ref as _ref
 
 BLOCK_EVENTS = 128           # events per block: kBE in csrc/fitness.cu
 MAX_P_TILES = 65535          # the grid's y extent, in tiles of 64
+P_NARROW = 8                 # P <= 8 takes the narrow kernel (kNarrowP)
+RUN_EVENTS = 8               # events a run sums in order: kTM
+NARROW_EVENTS = 64           # events per narrow block: kNE
 
 launches = 0
 
 _fn = None
+
+
+class FitnessPlan(NamedTuple):
+    """One call: ``route`` "narrow" or "wide", the first kernel's grid,
+    the float32 scratch between the two kernels (``workspace`` rows x P:
+    per-run sums for the narrow kernel, per-tile sums for the wide one),
+    and, for the narrow kernel, whether IL and w move in 16-byte copies."""
+    route: str
+    grid: Tuple[int, int]
+    workspace: Tuple[int, int]
+    vec16: bool
+
+
+def fitness_plan(E: int, m: int, P: int, aligned: bool = True
+                 ) -> FitnessPlan:
+    """Which kernel a call of E events, m region-perils and P individuals
+    takes, and its grid and scratch.  ``aligned``: IL and w start on
+    16-byte boundaries."""
+    if 1 <= P <= P_NARROW:
+        return FitnessPlan("narrow", (-(-E // NARROW_EVENTS), 1),
+                           (-(-E // RUN_EVENTS), P),
+                           bool(aligned and m % 4 == 0))
+    return FitnessPlan("wide", (-(-E // BLOCK_EVENTS), -(-P // 64)),
+                       (-(-E // BLOCK_EVENTS), P), False)
 
 
 def _kernel_fn():
@@ -40,11 +72,19 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         lib.fitness_error_string.argtypes = [ctypes.c_int]
         lib.fitness_error_string.restype = ctypes.c_char_p
-        lib.fitness_block_events.restype = ctypes.c_int
-        if lib.fitness_block_events() != BLOCK_EVENTS:
+        narrow = lib.fitness_sq_narrow
+        narrow.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+        narrow.restype = ctypes.c_int
+        for name in ("fitness_block_events", "fitness_narrow_max_p",
+                     "fitness_run_events"):
+            getattr(lib, name).restype = ctypes.c_int
+        if (lib.fitness_block_events(), lib.fitness_narrow_max_p(),
+                lib.fitness_run_events()) != (BLOCK_EVENTS, P_NARROW,
+                                              RUN_EVENTS):
             raise RuntimeError("kernel.py and csrc/fitness.cu disagree on "
-                               "the events per block")
-        _fn = (fn, lib.fitness_error_string)
+                               "the events per block, run or narrow P")
+        _fn = (fn, narrow, lib.fitness_error_string)
     return _fn
 
 
@@ -73,7 +113,8 @@ def fitness_sq(il: torch.Tensor, w: torch.Tensor, target: torch.Tensor,
     """Sum over events of the squared recovery error of every individual.
 
     il (E, m), w (P, m), target (E,), all float32 and contiguous on one
-    device; att and limit are Python floats.  Returns sq (P,) float32.
+    device; att and limit are Python floats.  Returns sq (P,) float32, each
+    row's value the same whichever kernel :func:`fitness_plan` picks.
     Never synchronises with the host.
     """
     global launches
@@ -87,12 +128,20 @@ def fitness_sq(il: torch.Tensor, w: torch.Tensor, target: torch.Tensor,
     out = torch.empty(P, dtype=torch.float32, device=il.device)
     if P == 0 or E == 0:
         return out.zero_()
-    partial = torch.empty((-(-E // BLOCK_EVENTS), P), dtype=torch.float32,
+    plan = fitness_plan(E, m, P, aligned=il.data_ptr() % 16 == 0
+                        and w.data_ptr() % 16 == 0)
+    scratch = torch.empty(plan.workspace, dtype=torch.float32,
                           device=il.device)
-    fn, errstr = _kernel_fn()
-    err = fn(il.data_ptr(), w.data_ptr(), target.data_ptr(), float(att),
-             float(limit), E, m, P, partial.data_ptr(), out.data_ptr(),
-             torch.cuda.current_stream(il.device).cuda_stream)
+    wide, narrow, errstr = _kernel_fn()
+    stream = torch.cuda.current_stream(il.device).cuda_stream
+    if plan.route == "narrow":
+        err = narrow(il.data_ptr(), w.data_ptr(), target.data_ptr(),
+                     float(att), float(limit), E, m, P, int(plan.vec16),
+                     scratch.data_ptr(), out.data_ptr(), stream)
+    else:
+        err = wide(il.data_ptr(), w.data_ptr(), target.data_ptr(),
+                   float(att), float(limit), E, m, P, scratch.data_ptr(),
+                   out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fitness_sq launch failed: "
                            f"{errstr(err).decode()} ({err})")

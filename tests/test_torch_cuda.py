@@ -327,6 +327,177 @@ def test_cuda_engine_options_token_exact(cuda_device, kw):
         assert counts[2] == 2 * eng.metrics()["prefix_cache"]["cow_copies"]
 
 
+# --- the split walk and the fused int8 quantize ------------------------------
+
+# (shape, window, softcap, max_live_blocks or None for the case's own)
+SPLIT_CASES = {
+    # block 4: four pages a split, 9 to 15 pages a request
+    "pages_gt_splits": (dict(S=2, filled=[30, 55, 4], ns=[2, 1, 2], Hkv=1,
+                             G=8, BS=4, MB=16, D=256), FULL, 0.0, None),
+    # block 16: one page a split
+    "one_page_a_split": (dict(S=1, filled=[40, 47, 33, 63], ns=[1, 1, 1, 1],
+                              Hkv=1, G=8, BS=16, MB=6, D=256), FULL, 0.0,
+                         None),
+    "window_softcap": (dict(S=16, filled=[30, 0, 60, 17], ns=[16, 16, 5, 1],
+                            Hkv=2, G=4, BS=16, MB=6, D=64), 12, 20.0, None),
+    # request 1 has no live row: finite output, no NaN
+    "fully_padded": (dict(S=3, filled=[20, 0, 9], ns=[3, 0, 2], Hkv=2, G=2,
+                          BS=4, MB=8, D=16), FULL, 0.0, None),
+    # request 0's rows at 32..35 land on page 2, past the walk's 2 pages
+    "past_live": (dict(S=16, filled=[20, 2], ns=[16, 1], Hkv=2, G=4, BS=16,
+                       MB=4, D=64), FULL, 0.0, 2),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_cuda_split_walk_matches_plain(cuda_device, case, dtype, tol, quant):
+    """The walk split over pages, the fused update and the read-only walk,
+    against the plain versions: live-row outputs within the existing
+    tolerances, every output finite, the update's pools (and scale pools)
+    bit-equal to the plain scatter's, the read-only walk's untouched."""
+    shape, window, softcap, live = SPLIT_CASES[case]
+    c = make_case(31, **shape)
+    live = c["live"] if live is None else live
+    plan = pa_kernel.walk_plan(len(shape["filled"]), shape["S"], shape["G"],
+                               shape["Hkv"], shape["D"], shape["BS"], live,
+                               shape["MB"])
+    assert plan.n_split > 1 or case in ("fully_padded", "past_live")
+    t = _on(cuda_device, c, dtype)
+    kp, vp, kw = t["kp"], t["vp"], {}
+    if quant:
+        kp, vp, ks, vs = _int8_pools(cuda_device, c, 5)
+        kw = dict(k_scale=ks, v_scale=vs)
+    args = dict(window=window, softcap=softcap, max_live_blocks=live)
+    mask = torch.from_numpy(c["pos"] >= 0).to(cuda_device)
+    res = {}
+    for name, fn in (("plain", pa_ref.unified_attention_update),
+                     ("kernel", pa_kernel.paged_attention_update)):
+        res[name] = fn(t["q"], t["kn"], t["vn"], kp.clone(), vp.clone(),
+                       t["tables"], t["pos"], **args,
+                       **{k: v.clone() for k, v in kw.items()})
+    before = [x.clone() for x in (kp, vp, *kw.values())]
+    ro = pa_kernel.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                   **args, **kw)
+    ro_want = pa_ref.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                     **args, **kw)
+    torch.cuda.synchronize()
+    want = res["plain"][0].float()
+    assert (res["kernel"][0].float() - want)[mask].abs().max() <= tol
+    assert (ro.float() - ro_want.float())[mask].abs().max() <= tol
+    assert torch.isfinite(res["kernel"][0].float()).all()
+    assert torch.isfinite(ro.float()).all()
+    for a, b in zip(res["kernel"][1:], res["plain"][1:]):
+        assert torch.equal(a[1:], b[1:])
+    for x, y in zip((kp, vp, *kw.values()), before):
+        assert torch.equal(x, y)
+
+
+def test_cuda_split_walk_row_invariant(cuda_device):
+    """A split walks a fixed run of keys, so a row's output does not depend
+    on the walk's live-block bound or on the requests beside it: decode
+    rows bit-equal with max_live_blocks at its least and at the table's
+    width, and a request alone bit-equal to its row in the batch."""
+    c = make_case(32, S=1, filled=[40, 47, 33, 63], ns=[1, 1, 1, 1], Hkv=1,
+                  G=8, BS=16, MB=8, D=256)
+    t = _on(cuda_device, c, torch.bfloat16)
+    outs = [pa_kernel.paged_attention(t["q"], t["kp"], t["vp"], t["tables"],
+                                      t["pos"], window=FULL, softcap=0.0,
+                                      max_live_blocks=L)
+            for L in (c["live"], 8)]
+    alone = pa_kernel.paged_attention(t["q"][2:3], t["kp"], t["vp"],
+                                      t["tables"][2:3], t["pos"][2:3],
+                                      window=FULL, softcap=0.0,
+                                      max_live_blocks=3)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(alone, outs[0][2:3])
+
+
+def _quantize_rows_case(dtype, D):
+    """Fresh K/V rows (B 1, S 4, Hkv 2) that test the quantize's edges:
+    a row whose every value is a tie (x * inv = n + 0.5 exactly: amax 127
+    gives scale 1 and inv 1), an all-zero row, a row of +-amax (q = +-127),
+    the rest normal."""
+    rng = np.random.default_rng(33)
+    k = rng.standard_normal((1, 4, 2, D)).astype(np.float32)
+    v = rng.standard_normal((1, 4, 2, D)).astype(np.float32)
+    ties = rng.integers(-126, 126, D) + 0.5
+    ties[0] = 127.0
+    k[0, 0, 0] = ties
+    k[0, 0, 1] = 0.0
+    v[0, 1, 0] = np.where(rng.random(D) < 0.5, -3.25, 3.25)
+    v[0, 2, 1] = 0.0
+    return (torch.from_numpy(k).to(dtype), torch.from_numpy(v).to(dtype))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 16),
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 256)],
+                         ids=["fp32-16", "fp32-256", "bf16-64", "bf16-256"])
+def test_cuda_fused_quantize_bit_equal(cuda_device, dtype, D):
+    """The int8 update quantizes the fresh rows in the kernel: the K/V
+    pools and scale pools bit-equal to the plain ``write_kv`` (that is,
+    ``ref.quantize_rows``) run on the card, for exact half-way ties
+    (rounded to even), an all-zero row and a row at +-amax."""
+    kn, vn = _quantize_rows_case(dtype, D)
+    q_tie, s_tie = pa_ref.quantize_rows(kn[0, 0, 0])
+    # scale 1: every value but the amax is a tie, rounded to an even q
+    assert s_tie.item() == 1.0 and (q_tie[1:] % 2 == 0).all()
+    c = make_case(34, S=4, filled=[5], ns=[4], Hkv=2, G=2, BS=4, MB=4, D=D)
+    t = _on(cuda_device, c, dtype)
+    t["kn"], t["vn"] = kn.to(cuda_device), vn.to(cuda_device)
+    kp, vp, ks, vs = _int8_pools(cuda_device, c, 6)
+    got = pa_kernel.paged_attention_update(
+        t["q"], t["kn"], t["vn"], kp.clone(), vp.clone(), t["tables"],
+        t["pos"], window=FULL, softcap=0.0, max_live_blocks=c["live"],
+        k_scale=ks.clone(), v_scale=vs.clone())
+    want = pa_ref.write_kv(kp.clone(), vp.clone(), t["kn"], t["vn"],
+                           t["pos"], t["tables"], ks.clone(), vs.clone())
+    torch.cuda.synchronize()
+    for a, b in zip(got[1:], want):
+        assert torch.equal(a, b)
+    slot = int(c["tables"][0, 5 // 4]) * 4 + 5 % 4
+    assert torch.equal(got[1].view(-1, 2, D)[slot, 0].cpu(), q_tie)
+    assert (got[1].view(-1, 2, D)[slot, 1] == 0).all()
+    assert got[3].view(-1, 2)[slot, 1].item() == 0.0
+
+
+@pytest.mark.parametrize("n_split", [1, 3], ids=["one_split", "splits"])
+def test_cuda_int8_update_one_kernel_on_stream(cuda_device, n_split):
+    """An int8 update puts exactly one kernel on the stream: the quantize,
+    the scatter, the split walk and the combine are all in it (the
+    workspace and the output are allocated, not written, by PyTorch)."""
+    filled = 3 if n_split == 1 else 40
+    c = make_case(35, S=1, filled=[filled, filled], ns=[1, 1], Hkv=1, G=8,
+                  BS=16, MB=4, D=256)
+    t = _on(cuda_device, c, torch.bfloat16)
+    kp, vp, ks, vs = _int8_pools(cuda_device, c, 7)
+    assert pa_kernel.walk_plan(2, 1, 8, 1, 256, 16, c["live"],
+                               4).n_split == n_split
+
+    def call():
+        return pa_kernel.paged_attention_update(
+            t["q"], t["kn"], t["vn"], kp, vp, t["tables"], t["pos"],
+            window=FULL, softcap=0.0, max_live_blocks=c["live"], k_scale=ks,
+            v_scale=vs)
+
+    call()                              # builds; grows the counters
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "paged_kernel" in on_card[0], on_card
+
+
 # --- the CATopt fitness kernel ----------------------------------------------
 
 def fitness_case(dev, seed, E, m, P, att=5.0, limit=20.0):
@@ -397,6 +568,31 @@ def test_cuda_fitness_gradient_matches_plain(cuda_device):
     torch.cuda.synchronize()
     err = (grads[0] - grads[1]).abs().max() / grads[1].abs().max()
     assert err.item() <= 1e-4
+
+
+@pytest.mark.parametrize("P", range(1, 9))
+def test_cuda_fitness_narrow_bit_equal_to_wide(cuda_device, P):
+    """For P <= P_NARROW the narrow kernel runs, and each row's sq equals
+    the wide kernel's bit for bit (the same rows inside a population of
+    16, which takes the wide kernel): ragged E and m (m 130 and 257 take
+    4-byte copies), att < 0, and losses spread over 0 to 3x the mean, so
+    they straddle both clips.  Within FIT_RTOL of the plain version."""
+    from repro_torch.kernels.recovery import kernel, ref
+    for E, m, att, limit in ((777, 130, 45.0, 20.0), (500, 300, -4.0, 124.0),
+                             (1000, 257, 40.0, 30.0)):
+        il, w, target, att, limit = fitness_case(cuda_device, E + P, E, m,
+                                                 16, att, limit)
+        il = il * torch.linspace(0, 3, E, device=cuda_device)[:, None]
+        w = w * (2 * (att + limit / 2) / (0.8 * m))
+        assert kernel.fitness_plan(E, m, P).route == "narrow"
+        assert kernel.fitness_plan(E, m, 16).route == "wide"
+        wide = kernel.fitness_sq(il, w, target, att, limit)
+        narrow = kernel.fitness_sq(il, w[:P].contiguous(), target, att,
+                                   limit)
+        want = ref.fitness_sq(il, w[:P], target, att, limit)
+        torch.cuda.synchronize()
+        assert torch.equal(narrow, wide[:P])
+        assert ((narrow - want).abs() / want.abs()).max().item() <= FIT_RTOL
 
 
 def test_cuda_fitness_counts_launches(cuda_device):
