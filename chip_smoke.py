@@ -4,8 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --timing-only [--src DIR]
 
-The second form runs phases 1, 6, 6b and 9, a GA-generation breakdown and
-two decode-tick breakdowns (fp and int8 pages) alone, on the ``repro_torch`` package under ``DIR``
+The second form runs phases 1, 6, 6b, 9 and 15, a GA-generation breakdown
+and two decode-tick breakdowns (fp and int8 pages) alone, on the
+``repro_torch`` package under ``DIR``
 (default: this repository's ``src``): run it on the parent's tree and on
 this one in one call (parent, change, change, parent) to compare them on
 one card.
@@ -74,10 +75,11 @@ Phases, each raising on failure:
      P 200) and the polish's (P 4) on a ``make_problem`` instance, at two
      ragged shapes of ``test_recovery_vs_ref``, at att < 0 and at narrow
      ragged shapes (P 3, 5).  Every call that takes the narrow kernel
-     (P <= 8) gives rows bit-equal to the wide kernel's on the same rows.  Two
-     known-wrong readings (the clip dropped, the last tile of events
-     dropped) must land outside the tolerance.  The autograd backward must
-     match plain autograd's gradient;
+     (P <= 8) gives rows bit-equal to the wide kernel's on the same rows.
+     Known-wrong readings (the clip dropped, the last tile of events
+     dropped, and for the wide kernel the last 8 columns of each tile of
+     ``BLOCK_INDIVIDUALS`` dropped) must land outside the tolerance.  The
+     autograd backward must match plain autograd's gradient;
   8. CATopt at the paper's scale through the five verbs (volume, problem
      on the card, instance, project sync, ``run_on_instance`` running
      ``optimize_island`` under ``GAConfig()``: population 200, 50
@@ -89,7 +91,8 @@ Phases, each raising on failure:
      ``SweepEngine`` over the card, every point back once and equal to
      ``sweep_vmapped``.  Then generations/s, and wall and device time per
      generation under ``torch.profiler`` with the top kernels;
-  9. device time per call (CUDA events) of the fitness kernel, its
+  9. each fitness instantiation's registers and spills (the ptxas log),
+     then device time per call (CUDA events) of the fitness kernel, its
      plain version and the library route (``torch.matmul`` + the
      clamp/sub/square/sum epilogue in torch, fp32, TF32 off) at the
      paper's scale and the polish's, beside the kernel's bound;
@@ -136,7 +139,9 @@ Phases, each raising on failure:
      carries across thousands of tokens.  Each row (one token's output of
      one head) within ``WKV_TOL`` relative, below what known-wrong kernels
      give (the bonus dropped; the state reset at the middle chunk
-     boundary; the decay skipped on one late token; k v^T transposed);
+     boundary; the decay skipped on one late token; k v^T transposed; the
+     last column block of each head taking the next head's u; the dot
+     taken on the state after the update);
   14. rwkv6-1.6b at full width (24 layers, d 2048, 32 heads of 64, d_ff
      7168, vocab 65536, bf16, seed 0, ``use_pallas_wkv``):
      ``make_prefill_step`` at B 1 x S 32768 (``PREFILL_32K``'s length, its
@@ -148,10 +153,11 @@ Phases, each raising on failure:
      the decode state's bytes equal after a 64- and a 2048-token prompt;
      4 greedy streams (prompt 512, generate 32) through
      ``launch/serve.main --engine batch``; peak device memory;
-  15. device time per call of the wkv kernel (CUDA events behind a queued
-     sleep) at B 1 x S 32768 and B 8 x S 2048 (H 32, D 64, the model's
-     types), its plain version once at S 32768, beside the bound; no
-     PyTorch call computes the recurrence, so no library time.
+  15. each wkv instantiation's registers and spills, then device time per
+     call of the wkv kernel (CUDA events behind a queued sleep) at B 1 x S
+     32768 and B 8 x S 2048 (H 32, D 64, the model's types), its plain
+     version once at each, beside the bound; no PyTorch call computes the
+     recurrence, so no library time.
 
 Phases run in the order 1-6b, 10-12, 7-9, 13-15, so the training state is
 freed before the CATopt phases.
@@ -1879,6 +1885,15 @@ def fitness_cases(torch, dev, problem):
     return cases
 
 
+def tile_columns_dropped(torch, sq, tile, n=8):
+    """What a wide kernel that never computed the last ``n`` live columns
+    of each tile of ``tile`` individuals would return: 0 in those rows."""
+    P = sq.shape[0]
+    p = torch.arange(P, device=sq.device)
+    live_end = torch.clamp((p // tile + 1) * tile, max=P)
+    return torch.where(p >= live_end - n, torch.zeros_like(sq), sq)
+
+
 def phase_fitness_vs_plain(torch, dev, problem):
     """Returns (max abs error of sq at the paper's scale, max relative
     error of sq over all cases)."""
@@ -1900,11 +1915,14 @@ def phase_fitness_vs_plain(torch, dev, problem):
                      torch.matmul(w, il.T) - att - target).sum(-1)),
                  "last event tile dropped": rel(ref.fitness_sq(
                      il[:cut], w, target[:cut], att, limit))}
+        route = kernel.fitness_plan(E, il.shape[1], w.shape[0]).route
+        if route == "wide":
+            wrong["last 8 columns of each P tile dropped"] = rel(
+                tile_columns_dropped(torch, want, kernel.BLOCK_INDIVIDUALS))
         finite = bool(torch.isfinite(got).all())
         # the narrow kernel's rows against the wide kernel's, bit for bit:
         # the same rows inside a population too wide for the narrow one (a
         # CPU rehearsal runs the plain version, which is not row-local)
-        route = kernel.fitness_plan(E, il.shape[1], w.shape[0]).route
         same = ""
         if route == "narrow" and dev.type == "cuda":
             big = torch.cat([w, w.flip(0).repeat(kernel.P_NARROW, 1)])
@@ -2139,8 +2157,22 @@ def kernel_route(kernel, il, w):
     return kernel.fitness_plan(il.shape[0], il.shape[1], w.shape[0]).route
 
 
+def build_report(name):
+    """Each instantiation's registers, spills and static shared memory in
+    kernel source ``name``'s ptxas log."""
+    from repro_torch.kernels import _build
+    rep = _build.ptxas_report(name)
+    names = _build.demangle(sorted(rep))
+    for f in sorted(rep, key=lambda f: names[f]):
+        r = rep[f]
+        log(f"[build] {name}: {names[f][:90]}: {r['registers']} registers, "
+            f"spill stores {r['spill_stores']} B, loads {r['spill_loads']} "
+            f"B, stack {r['stack']} B, static smem {r['smem']} B")
+
+
 def phase_fitness_timing(torch, dev, problem):
     from repro_torch.kernels.recovery import kernel, ref
+    build_report("fitness")
     il, target = problem.industry_losses, problem.target_recovery
     att, limit = problem.attachment, problem.limit
     g = torch.Generator(device=dev).manual_seed(12)
@@ -2211,15 +2243,35 @@ def layer0_inputs(torch, cfg, params, toks):
     return r, k, v, w, u
 
 
+def wkv_head_u(torch, r, k, v, w, u, columns):
+    """The block owning the last ``columns`` columns of every head took the
+    next head's bonus u (a wrong head index in a column block)."""
+    from repro_torch.kernels.wkv6 import ref
+    out = ref.wkv(r, k, v, w, u)
+    out[..., -columns:] = ref.wkv(r, k, v, w, u.roll(1, 0))[..., -columns:]
+    return out
+
+
+def wkv_dot_after_update(torch, r, k, v, w, u):
+    """The dot r . S taken on the state after the token's update:
+    r . (diag(w) S + k v^T) = (r * w) . S + (r . k) v, plus the bonus."""
+    from repro_torch.kernels.wkv6 import ref
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    return ref.wkv(rf * w.float(), k, v, w, torch.zeros_like(u)) + (
+        (rf * kf).sum(-1, keepdim=True)
+        + (rf * (u.float() * kf)).sum(-1, keepdim=True)) * vf
+
+
 def wkv_wrong(torch, r, k, v, w, u, only=None):
     """Known-wrong kernels as plain algebra, each subtle at late tokens:
     {label: output}, or only the one labelled ``only``.  The bonus u
     dropped; the state reset at the middle 128-token chunk boundary (the
     TPU kernel's chunk); the decay skipped on one token 64 from the end;
     k v^T transposed in the update (the plain scan with k and v swapped,
-    its bonus term put right)."""
-    from repro_torch.kernels.wkv6 import ref
-    S = r.shape[1]
+    its bonus term put right); the last column block of each head with the
+    next head's u; the dot taken on the state after the update."""
+    from repro_torch.kernels.wkv6 import kernel, ref
+    S, D = r.shape[1], r.shape[3]
     mid, late = 128 * (S // 128 // 2), S - 64
 
     def bonus(a):
@@ -2237,7 +2289,11 @@ def wkv_wrong(torch, r, k, v, w, u, only=None):
              ref.wkv(r[:, mid:], k[:, mid:], v[:, mid:], w[:, mid:], u)], 1),
         f"decay skipped at token {late}": skipped,
         "k v^T transposed": lambda: ref.wkv(r, v, k, w, u)
-        - bonus(v) * k.float() + bonus(k) * v.float()}
+        - bonus(v) * k.float() + bonus(k) * v.float(),
+        "last column block with the next head's u": lambda: wkv_head_u(
+            torch, r, k, v, w, u, kernel.BLOCK_COLUMNS),
+        "dot on the state after the update": lambda: wkv_dot_after_update(
+            torch, r, k, v, w, u)}
     return {name: fn() for name, fn in readings.items()
             if only is None or name == only}
 
@@ -2280,9 +2336,14 @@ def phase_wkv_vs_plain(torch, dev, real):
         u = (torch.randn(H, D, generator=g) * 0.1).to(dev)
         # the same bf16-representable values in both dtypes: one plain run
         r, k, v = (t.bfloat16().float() for t in (r, k, v))
+        wrong = {"bonus u dropped": ref.wkv(r, k, v, w, torch.zeros_like(u)),
+                 "dot on the state after the update": wkv_dot_after_update(
+                     torch, r, k, v, w, u)}
+        if H > 1:
+            wrong["last column block with the next head's u"] = wkv_head_u(
+                torch, r, k, v, w, u, kernel.BLOCK_COLUMNS)
         check(f"B {B} S {S} H {H} D {D}", (r, k, v, w, u),
-              ref.wkv(r, k, v, w, u),
-              {"bonus u dropped": ref.wkv(r, k, v, w, torch.zeros_like(u))})
+              ref.wkv(r, k, v, w, u), wrong)
     r, k, v, w, u = real
     B, S, H, D = r.shape
     want = ref.wkv(r, k, v, w, u)
@@ -2440,10 +2501,12 @@ def wkv_bound(ins):
 def phase_wkv_timing(torch, dev, real):
     """Device time per call of the wkv kernel (CUDA events behind a queued
     sleep) at B 1 x S ``RWKV_SEQ`` on layer 0's inputs and at B 8 x S 2048
-    (H 32, D 64, r/k/v bf16, w fp32: the model's types), beside the bound;
-    the plain version once at B 1 x S ``RWKV_SEQ``.  No single PyTorch
-    call computes the recurrence, so there is no library time."""
+    (H 32, D 64, r/k/v bf16, w fp32: the model's types), beside the bound
+    and each build's registers and spills; the plain version once at each
+    shape.  No single PyTorch call computes the recurrence, so there is no
+    library time."""
     from repro_torch.kernels.wkv6 import kernel, ref
+    build_report("wkv6")
     out = {}
     g = torch.Generator().manual_seed(4)
     r, k, v, w, u = real
@@ -2472,21 +2535,24 @@ def phase_wkv_timing(torch, dev, real):
             f"ms of {reps} (least {lo:.4f}, most {hi:.4f}); bound "
             f"{b_ms:.4f} ms ({b_by}); library: none (no PyTorch call "
             f"computes this recurrence)")
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    ref.wkv(*real)
-    stop.record()
-    torch.cuda.synchronize()
-    plain = start.elapsed_time(stop)
-    out[f"B 1 S {r.shape[1]}"]["plain_ms"] = plain
-    log(f"[time] wkv plain version (the exact scan, one step a token) "
-        f"B 1 S {r.shape[1]}: {plain:.1f} ms, one call between CUDA events")
+    for label, ins in ((f"B 1 S {r.shape[1]}", real),
+                       ("B 8 S 2048", x8 + [u])):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        ref.wkv(*ins)
+        stop.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(stop)
+        out[label]["plain_ms"] = plain
+        log(f"[time] wkv plain version (the exact scan, one step a token) "
+            f"{label}: {plain:.1f} ms, one call between CUDA events")
     return out
 
 
 def timing_main(src):
-    """``--timing-only [--src DIR]``: phases 1, 6, 6b and 9, the GA
+    """``--timing-only [--src DIR]``: phases 1, 6, 6b, 9 and 15, the GA
     generation's breakdown and the fp and int8 decode ticks' alone, on the
     ``repro_torch`` package under ``DIR`` (default: this repository's
     ``src``), building only the kernels they time.  Run it on two trees in
@@ -2505,7 +2571,7 @@ def timing_main(src):
     dev = torch.device("cuda")
     gpu = phase_gpu_info()
     log(f"[timing] repro_torch from {os.path.dirname(repro_torch.__file__)}")
-    _build.build(["paged_attention", "copy_page", "fitness"])
+    _build.build(["paged_attention", "copy_page", "fitness", "wkv6"])
     timing = phase_timing(torch, dev)
     timing.update(phase_family_timing(torch, dev))
     problem = make_problem(seed=0, n_events=PAPER["E"], n_dims=PAPER["m"],
@@ -2521,6 +2587,12 @@ def timing_main(src):
         timing[f"tick {label}"] = tick_breakdown(
             torch, cfg, params, prompts, 32, dict(kw, **extra),
             label=f" {label} pages")
+    del cfg, params, prompts
+    cfg_rw, rw_params, rw_toks = rwkv_model(torch, dev)
+    real = layer0_inputs(torch, cfg_rw, rw_params, rw_toks)
+    del rw_params
+    timing.update({f"wkv {k}": v for k, v in
+                   phase_wkv_timing(torch, dev, real).items()})
     log(json.dumps({"timing": timing, "src": os.path.abspath(src),
                     "gpu": gpu}))
     return 0

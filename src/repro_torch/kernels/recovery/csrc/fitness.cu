@@ -12,12 +12,24 @@
 //
 // Design for a CUDA grid (the TPU kernel accumulates sq across a sequential
 // grid axis over E; here blocks run in parallel and in no order):
-//   * grid (ceil(E / kBE), ceil(P / kBP)); a block owns kBE events x kBP
-//     individuals and loops over m in chunks of kBK, staging both tiles in
-//     shared memory (transposed, so a thread reads its 8 events and its 4
-//     individuals of one k as 16-byte vectors).  Each of the 256 threads
-//     holds an 8 x 4 tile of dot products in registers, accumulated with
-//     fp32 FMA: no TF32, the result is held to fp32 references.
+//   * grid (ceil(E / kBE), ceil(P / kBP)); a block owns kBE = 128 events x
+//     kBP = 112 individuals (two tiles cover the GA's P 200 with 24 columns
+//     to spare) and walks m in chunks of kBK = 32, brought into shared
+//     memory by 16-byte cp.async copies (4-byte where m is not a multiple
+//     of 4 or a base is not 16-byte aligned) kStages = 4 deep, so three
+//     chunks are in flight while the FMAs run on the fourth.  The tiles
+//     keep global memory's row-major layout (a 16-byte copy is 4 k of one
+//     row) with each row's 16-byte chunks permuted by an XOR of the row, so
+//     the 16 event rows and 2 individual rows a warp reads at one k land in
+//     distinct banks (2 and 1 wavefronts: the least for their bytes).
+//   * Each of the 256 threads holds an 8 x 7 tile of dot products (8
+//     consecutive events, one run, x 7 individuals) in registers: per 4 k,
+//     15 LDS.128 for 224 fp32 FMAs.  8 warps a block, 2 on each of an SM's 4
+//     schedulers, and 128 blocks for the paper's E 8192, P 200: one wave on
+//     132 SMs.  (A tile of 104 as 13 individuals a thread leaves one warp
+//     a scheduler and ran far slower on the card; 8 x 8 at 128, warps of
+//     8 x 4 thread tiles, 3 stages or 64 k a stage were no faster.)  fp32
+//     FMA, no TF32: the result is held to fp32 references.
 //   * Epilogue per thread: clip, subtract the target, square and add over
 //     its 8 events; then the 16 thread rows of a column are added in a fixed
 //     order through shared memory and the block writes one partial per
@@ -26,7 +38,7 @@
 //     compares fitness values (tournaments, elites), so a run must not
 //     depend on the order in which atomics land.  Each sq[p] is a function
 //     of row p alone, whatever P is or where p sits in its tile.
-//   * Edges: loads outside E, m or P read 0 and the epilogue skips events
+//   * Edges: copies outside E, m or P write 0 and the epilogue skips events
 //     past E, so ragged shapes need no padding and any att (also att < 0,
 //     where a zero-padded event would add clip(-att, 0, limit)^2) is right.
 //   * The clip is written with comparisons, so a NaN passes through as in
@@ -35,12 +47,12 @@
 // Bound on an H100: operations.  At the paper's scale (E 8192, m 2048,
 // P 200) the call does 2 E m P = 6.7 GFLOP over 64 MiB of IL: 100 flop per
 // byte, above fp32's ridge of 67e12 / 3.35e12 = 20, so 0.10 ms at the card's
-// 67 TFLOP/s fp32 peak against 0.02 ms for the bytes.  This version is the
-// simple register-tiled SGEMM: scalar global loads, no cp.async or TMA
-// pipeline, no tensor cores.  3xTF32 wgmma is later work.
+// 67 TFLOP/s fp32 peak against 0.02 ms for the bytes.  The FMAs stay on the
+// SIMT cores in one chain per dot: split-k, TF32 or 3xTF32 would change the
+// bits the narrow kernel must reproduce (below).
 //
 // The narrow kernel, for P <= kNarrowP (the GA's polish calls at P 4).
-// There the wide tile computes 64 individuals for 4, and the call is bound
+// There the wide tile computes 112 individuals for 4, and the call is bound
 // by bytes: 64 MiB of IL, 0.02 ms.  fitness_narrow_kernel streams IL once
 // over all SMs: a block owns kNE events and brings chunks of kNK
 // region-perils of IL and w into shared memory with 16-byte cp.async
@@ -65,14 +77,15 @@
 namespace {
 
 constexpr int kBE = 128;                            // events per block
-constexpr int kBP = 64;                             // individuals per block
-constexpr int kBK = 16;                             // m per shared chunk
+constexpr int kBP = 112;                            // individuals per block
+constexpr int kBK = 32;                             // m per stage
+constexpr int kStages = 4;                          // cp.async depth
 constexpr int kTM = 8;                              // events per thread
-constexpr int kTN = 4;                              // individuals per thread
+constexpr int kTN = 7;                              // individuals per thread
 constexpr int kRowsT = kBE / kTM;                   // 16 thread rows
 constexpr int kColsT = kBP / kTN;                   // 16 thread columns
 constexpr int kThreads = kRowsT * kColsT;           // 256
-constexpr int kPad = 4;                             // keeps rows 16-byte aligned
+constexpr int kQuads = kBK / 4;                     // 16-byte chunks a row
 constexpr int kReduceThreads = 128;
 constexpr int kNarrowP = 8;                         // the narrow kernel's P
 constexpr int kNE = 64;                             // narrow: events a block
@@ -81,20 +94,102 @@ constexpr int kNStages = 3;                         // narrow: cp.async depth
 constexpr int kNStride = kNK + 4;                   // rows: 16-byte aligned,
                                                     // 4 banks apart
 constexpr int kRunsPerTile = kBE / kTM;             // 16
+static_assert((kQuads & (kQuads - 1)) == 0 && kQuads >= 8,
+              "the swizzle permutes a power of two of chunks a row");
+static_assert(kBE * kQuads % kThreads == 0 && kBE * kBK % kThreads == 0 &&
+              kBP * kBK % kThreads == 0, "copies split evenly");
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Where element (row, k) of a stage's tile sits: rows of kBK floats, the
+// 16-byte chunk k / 4 moved to (k / 4) ^ swz.  Event rows take swz = the
+// thread row e / 8, individual rows p (both mod kQuads): see the header
+// note.
+__device__ __forceinline__ int a_at(int e, int k) {
+  return e * kBK + ((((k >> 2) ^ (e >> 3)) & (kQuads - 1)) << 2) + (k & 3);
+}
+__device__ __forceinline__ int b_at(int p, int k) {
+  return p * kBK + ((((k >> 2) ^ p) & (kQuads - 1)) << 2) + (k & 3);
+}
+
+size_t wide_smem_bytes() {
+  return sizeof(float) * (size_t)kStages * (kBE + kBP) * kBK;
+}
+
+// kVec16: m % 4 == 0 and IL, w 16-byte aligned.
+template <bool kVec16>
 __global__ void __launch_bounds__(kThreads)
 fitness_partial_kernel(const float* __restrict__ il,
                        const float* __restrict__ w,
                        const float* __restrict__ target, float att,
                        float limit, int E, int m, int P,
                        float* __restrict__ partial) {
-  __shared__ __align__(16) float As[kBK][kBE + kPad];   // As[k][e]
-  __shared__ __align__(16) float Bs[kBK][kBP + kPad];   // Bs[k][p]
+  extern __shared__ __align__(16) float wsm[];
+  float* As = wsm;                                  // [stage][kBE][kBK]
+  float* Bs = wsm + kStages * kBE * kBK;            // [stage][kBP][kBK]
   __shared__ float red[kRowsT][kBP];
 
   const int tid = threadIdx.x;
-  const int tx = tid % kColsT, ty = tid / kColsT;
+  const int ty = tid % kRowsT, tx = tid / kRowsT;   // a warp: 16 ty x 2 tx
   const int e0 = blockIdx.x * kBE, p0 = blockIdx.y * kBP;
+  const int nk = (m + kBK - 1) / kBK;
+
+  // chunk kc of IL rows e0 .. e0 + kBE - 1 and of w rows p0 .. p0 + kBP - 1
+  // into stage st; past E, P or m the copies read nothing and write zeros
+  auto issue = [&](int kc, int st) {
+    const int k0 = kc * kBK;
+    float* as = As + st * kBE * kBK;
+    float* bs = Bs + st * kBP * kBK;
+    if constexpr (kVec16) {
+#pragma unroll
+      for (int u = 0; u < kBE * kQuads / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        const int r = i / kQuads, k = k0 + (i % kQuads) * 4;
+        const bool in = e0 + r < E && k < m;
+        cp_async16(as + a_at(r, k - k0),
+                   in ? il + (size_t)(e0 + r) * m + k : il, in ? 16 : 0);
+      }
+#pragma unroll
+      for (int u = 0; u < (kBP * kQuads + kThreads - 1) / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        if (i >= kBP * kQuads) break;
+        const int r = i / kQuads, k = k0 + (i % kQuads) * 4;
+        const bool in = p0 + r < P && k < m;
+        cp_async16(bs + b_at(r, k - k0),
+                   in ? w + (size_t)(p0 + r) * m + k : w, in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kBE * kBK; i += kThreads) {
+        const int r = i / kBK, k = k0 + i % kBK;
+        const bool in = e0 + r < E && k < m;
+        cp_async4(as + a_at(r, k - k0),
+                  in ? il + (size_t)(e0 + r) * m + k : il, in ? 4 : 0);
+      }
+      for (int i = tid; i < kBP * kBK; i += kThreads) {
+        const int r = i / kBK, k = k0 + i % kBK;
+        const bool in = p0 + r < P && k < m;
+        cp_async4(bs + b_at(r, k - k0),
+                  in ? w + (size_t)(p0 + r) * m + k : w, in ? 4 : 0);
+      }
+    }
+  };
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -102,38 +197,51 @@ fitness_partial_kernel(const float* __restrict__ il,
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < m; k0 += kBK) {
-    // neighbouring threads read neighbouring k of one row
 #pragma unroll
-    for (int i = 0; i < kBE * kBK / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kBK, c = idx % kBK;
-      const int e = e0 + r, k = k0 + c;
-      As[c][r] = (e < E && k < m) ? il[(size_t)e * m + k] : 0.f;
-    }
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) issue(s, s);
+    cp_commit();
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_wait<kStages - 2>();
+    __syncthreads();   // chunk kc landed; chunk kc - 1's stage is free
+    if (kc + kStages - 1 < nk)
+      issue(kc + kStages - 1, (kc + kStages - 1) % kStages);
+    cp_commit();
+    const int st = kc % kStages;
+    const float* as = As + st * kBE * kBK;
+    const float* bs = Bs + st * kBP * kBK;
 #pragma unroll
-    for (int i = 0; i < kBP * kBK / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kBK, c = idx % kBK;
-      const int p = p0 + r, k = k0 + c;
-      Bs[c][r] = (p < P && k < m) ? w[(size_t)p * m + k] : 0.f;
-    }
-    __syncthreads();
+    for (int q = 0; q < kQuads; ++q) {
+      float4 a[kTM], b[kTN];
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * kTM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[k][ty * kTM + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * kTN]);
-      const float a[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[kTN] = {b.x, b.y, b.z, b.w};
+      for (int i = 0; i < kTM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + a_at(ty * kTM + i,
+                                                          4 * q));
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        b[j] = *reinterpret_cast<const float4*>(bs + b_at(tx * kTN + j,
+                                                          4 * q));
+      // k = 4q .. 4q + 3 in order: one FMA chain per dot
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
     }
-    __syncthreads();
   }
+  cp_wait<0>();
 
   float part[kTN];
 #pragma unroll
@@ -174,25 +282,6 @@ fitness_reduce_kernel(const float* __restrict__ partial, int n_tiles, int P,
   out[p] = s;
 }
 
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 size_t narrow_smem_bytes(int P) {
   return sizeof(float) * (size_t)kNStages * (kNE + P) * kNStride;
@@ -371,15 +460,33 @@ cudaError_t launch_narrow(const float* il, const float* w,
 
 extern "C" {
 
-// Scratch ``partial`` holds ceil(E / fitness_block_events()) x P floats.
-// Returns the CUDA error of the launches (0 when both were accepted).
+// Scratch ``partial`` holds ceil(E / fitness_block_events()) x P floats;
+// vec16: m % 4 == 0 and il, w start on 16-byte boundaries.  Returns the
+// CUDA error of the launches (0 when both were accepted).
 int fitness_sq(const float* il, const float* w, const float* target,
-               float att, float limit, int E, int m, int P, float* partial,
-               float* out, void* stream) {
+               float att, float limit, int E, int m, int P, int vec16,
+               float* partial, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = wide_smem_bytes();
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fitness_partial_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fitness_partial_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
   const dim3 grid((E + kBE - 1) / kBE, (P + kBP - 1) / kBP);
-  fitness_partial_kernel<<<grid, kThreads, 0, s>>>(il, w, target, att, limit,
-                                                   E, m, P, partial);
+  if (vec16)
+    fitness_partial_kernel<true><<<grid, kThreads, smem, s>>>(
+        il, w, target, att, limit, E, m, P, partial);
+  else
+    fitness_partial_kernel<false><<<grid, kThreads, smem, s>>>(
+        il, w, target, att, limit, E, m, P, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fitness_reduce_kernel<<<(P + kReduceThreads - 1) / kReduceThreads,
@@ -388,6 +495,8 @@ int fitness_sq(const float* il, const float* w, const float* target,
 }
 
 int fitness_block_events() { return kBE; }
+
+int fitness_block_individuals() { return kBP; }
 
 // The narrow kernel, for 1 <= P <= fitness_narrow_max_p().  Scratch
 // ``runs`` holds ceil(E / fitness_run_events()) x P floats; vec16: m % 4 ==

@@ -28,7 +28,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.recovery import ref as _ref
 
 BLOCK_EVENTS = 128           # events per block: kBE in csrc/fitness.cu
-MAX_P_TILES = 65535          # the grid's y extent, in tiles of 64
+BLOCK_INDIVIDUALS = 112      # individuals per wide block: kBP
+MAX_P_TILES = 65535          # the grid's y extent, in BLOCK_INDIVIDUALS
 P_NARROW = 8                 # P <= 8 takes the narrow kernel (kNarrowP)
 RUN_EVENTS = 8               # events a run sums in order: kTM
 NARROW_EVENTS = 64           # events per narrow block: kNE
@@ -40,9 +41,9 @@ _fn = None
 
 class FitnessPlan(NamedTuple):
     """One call: ``route`` "narrow" or "wide", the first kernel's grid,
-    the float32 scratch between the two kernels (``workspace`` rows x P:
-    per-run sums for the narrow kernel, per-tile sums for the wide one),
-    and, for the narrow kernel, whether IL and w move in 16-byte copies."""
+    the float32 scratch of partial sums (``workspace`` rows x P: per-run
+    sums for the narrow kernel, per-tile sums for the wide one),
+    and whether IL and w move in 16-byte copies (else 4-byte ones)."""
     route: str
     grid: Tuple[int, int]
     workspace: Tuple[int, int]
@@ -54,12 +55,13 @@ def fitness_plan(E: int, m: int, P: int, aligned: bool = True
     """Which kernel a call of E events, m region-perils and P individuals
     takes, and its grid and scratch.  ``aligned``: IL and w start on
     16-byte boundaries."""
+    vec16 = bool(aligned and m % 4 == 0)
     if 1 <= P <= P_NARROW:
         return FitnessPlan("narrow", (-(-E // NARROW_EVENTS), 1),
-                           (-(-E // RUN_EVENTS), P),
-                           bool(aligned and m % 4 == 0))
-    return FitnessPlan("wide", (-(-E // BLOCK_EVENTS), -(-P // 64)),
-                       (-(-E // BLOCK_EVENTS), P), False)
+                           (-(-E // RUN_EVENTS), P), vec16)
+    return FitnessPlan("wide",
+                       (-(-E // BLOCK_EVENTS), -(-P // BLOCK_INDIVIDUALS)),
+                       (-(-E // BLOCK_EVENTS), P), vec16)
 
 
 def _kernel_fn():
@@ -68,7 +70,7 @@ def _kernel_fn():
         lib = _build.library("fitness")
         fn = lib.fitness_sq
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         lib.fitness_error_string.argtypes = [ctypes.c_int]
         lib.fitness_error_string.restype = ctypes.c_char_p
@@ -76,14 +78,16 @@ def _kernel_fn():
         narrow.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
                            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
         narrow.restype = ctypes.c_int
-        for name in ("fitness_block_events", "fitness_narrow_max_p",
-                     "fitness_run_events"):
+        names = ("fitness_block_events", "fitness_block_individuals",
+                 "fitness_narrow_max_p", "fitness_run_events")
+        for name in names:
+            getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        if (lib.fitness_block_events(), lib.fitness_narrow_max_p(),
-                lib.fitness_run_events()) != (BLOCK_EVENTS, P_NARROW,
-                                              RUN_EVENTS):
+        if tuple(getattr(lib, name)() for name in names) != (
+                BLOCK_EVENTS, BLOCK_INDIVIDUALS, P_NARROW, RUN_EVENTS):
             raise RuntimeError("kernel.py and csrc/fitness.cu disagree on "
-                               "the events per block, run or narrow P")
+                               "the events or individuals per block, the "
+                               "run or the narrow P")
         _fn = (fn, narrow, lib.fitness_error_string)
     return _fn
 
@@ -103,8 +107,8 @@ def _check(il, w, target):
     if target.shape != (il.shape[0],):
         raise ValueError(f"target must be ({il.shape[0]},), got "
                          f"{tuple(target.shape)}")
-    if -(-w.shape[0] // 64) > MAX_P_TILES or il.numel() >= 2 ** 31 \
-            or w.numel() >= 2 ** 31:
+    if (-(-w.shape[0] // BLOCK_INDIVIDUALS) > MAX_P_TILES
+            or il.numel() >= 2 ** 31 or w.numel() >= 2 ** 31):
         raise ValueError("population or event count beyond the grid")
 
 
@@ -140,8 +144,8 @@ def fitness_sq(il: torch.Tensor, w: torch.Tensor, target: torch.Tensor,
                      scratch.data_ptr(), out.data_ptr(), stream)
     else:
         err = wide(il.data_ptr(), w.data_ptr(), target.data_ptr(),
-                   float(att), float(limit), E, m, P, scratch.data_ptr(),
-                   out.data_ptr(), stream)
+                   float(att), float(limit), E, m, P, int(plan.vec16),
+                   scratch.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fitness_sq launch failed: "
                            f"{errstr(err).decode()} ({err})")

@@ -4,9 +4,12 @@
 The kernel (``csrc/wkv6.cu``, whose header note gives the design) computes,
 per (batch row b, head h), ``out_t = r_t . S + (r_t . (u * k_t)) v_t`` and
 then ``S <- diag(w_t) S + k_t v_t^T``, with the D x D fp32 state in
-registers from the first token to the last.  It reads r, k, v and w in the
-model's (B, S, H, D) layout by stride (no transposed copies) and writes the
-output in r's dtype, contiguous.  This module is its ctypes wrapper.  The
+registers from the first token to the last, split over
+``D / BLOCK_COLUMNS`` blocks a head (:func:`wkv_plan`).  It reads r, k,
+v and w in the model's (B, S, H, D) layout by stride (no transposed
+copies; a tensor whose rows do not start on 16-byte boundaries is copied
+first) and writes the output in r's dtype, contiguous.  This module is its
+ctypes wrapper.  The
 plain version is ``ref.wkv``: the wrapper runs it for CPU tensors, and only
 for them; for CUDA tensors it launches the kernel or raises.
 
@@ -17,6 +20,7 @@ kernel.  The caller resets and reads it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,11 +29,45 @@ from repro_torch.kernels.wkv6 import ref as _ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BLOCKS = 2 ** 31 - 1        # B*H rides on the grid's x extent
+MAX_BLOCKS = 2 ** 31 - 1        # B*H*D/columns rides on the grid's x extent
+BLOCK_COLUMNS = 16              # columns of a head's state a block owns
+COLS_PER_LANE = 2               # state columns a lane keeps: Tile::kCols
 
 launches = 0
 
 _fn = None
+
+
+def rows_per_lane(D: int) -> int:
+    """State rows of one column a lane keeps: ``Tile<D>::kRows``."""
+    return 8 if D >= 128 else 4
+
+
+class WkvPlan(NamedTuple):
+    """One call: ``blocks`` on the grid (each owning ``columns`` columns
+    of one (b, h)), ``threads`` a block, ``lanes_per_column``."""
+    blocks: int
+    threads: int
+    columns: int
+    lanes_per_column: int
+
+
+def wkv_plan(B: int, H: int, D: int) -> WkvPlan:
+    """How a call of B rows, H heads of head dim D is split."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one the kernel is built "
+                         f"for: {HEAD_DIMS}")
+    lanes = D // rows_per_lane(D)
+    return WkvPlan(B * H * (D // BLOCK_COLUMNS),
+                   BLOCK_COLUMNS * lanes // COLS_PER_LANE, BLOCK_COLUMNS,
+                   lanes)
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Each (b, s, h) row of ``t`` starts on a 16-byte boundary."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0 for st in t.stride()[:3]))
 
 
 def _kernel_fn():
@@ -42,6 +80,16 @@ def _kernel_fn():
         fn.restype = ctypes.c_int
         lib.wkv6_error_string.argtypes = [ctypes.c_int]
         lib.wkv6_error_string.restype = ctypes.c_char_p
+        lib.wkv6_block_shape.argtypes = [ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.wkv6_block_shape.restype = ctypes.c_int
+        for D in HEAD_DIMS:
+            cols, threads = ctypes.c_int(), ctypes.c_int()
+            lib.wkv6_block_shape(D, ctypes.byref(cols), ctypes.byref(threads))
+            plan = wkv_plan(1, 1, D)
+            if (cols.value, threads.value) != (plan.columns, plan.threads):
+                raise RuntimeError("kernel.py and csrc/wkv6.cu disagree on "
+                                   f"the block at head dim {D}")
         _fn = (fn, lib.wkv6_error_string)
     return _fn
 
@@ -71,8 +119,9 @@ def _check(r, k, v, w, u):
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} is not one the kernel is built "
                          f"for: {HEAD_DIMS}")
-    if B * H > MAX_BLOCKS or S >= 2 ** 31:
-        raise ValueError(f"B*H = {B * H} or S = {S} beyond the grid")
+    blocks = wkv_plan(B, H, D).blocks
+    if blocks > MAX_BLOCKS or S >= 2 ** 31:
+        raise ValueError(f"{blocks} blocks or S = {S} beyond the grid")
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,6 +151,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     uf = u.to(torch.float32).contiguous()
+    r, k, v, w = (t if _rows_aligned(t)
+                  else t.clone(memory_format=torch.contiguous_format)
+                  for t in (r, k, v, w))
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (r, k, v, w) for s in t.stride()[:3]])
     fn, errstr = _kernel_fn()

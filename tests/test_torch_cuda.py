@@ -876,3 +876,153 @@ def test_cuda_rwkv_forward_on_the_kernel(cuda_device):
     assert _row_err(hk, hs) <= 1e-4
     assert torch.equal(generate(cfg_k, params, toks[:, :9], 6),
                        generate(cfg, params, toks[:, :9], 6))
+
+
+# --- the redesigned wide fitness tile and the split wkv walk ----------------
+
+def _fitness_spread(dev, seed, E, m, P, att, limit):
+    """fitness_case's inputs with losses spread over 0 to 3x the mean, so
+    rows straddle both clips."""
+    il, w, target, att, limit = fitness_case(dev, seed, E, m, P, att, limit)
+    il = il * torch.linspace(0, 3, E, device=dev)[:, None]
+    w = w * (2 * (att + limit / 2) / (0.8 * m))
+    return il, w, target, att, limit
+
+
+@pytest.mark.parametrize("P", range(1, 9))
+def test_cuda_fitness_wide_p200_rows_bit_equal_to_narrow(cuda_device, P):
+    """At the GA's P 200 (the wide kernel, two tiles of individuals), rows
+    0 .. P-1 equal the narrow kernel's call on those P rows bit for bit:
+    ragged E and m (16- and 4-byte copies), att < 0 among them."""
+    from repro_torch.kernels.recovery import kernel
+    for E, m, att, limit in ((777, 130, 45.0, 20.0), (1000, 256, -4.0, 124.0),
+                             (8192, 2048, 5.0, 20.0)):
+        il, w, target, att, limit = _fitness_spread(cuda_device, E + P, E, m,
+                                                    200, att, limit)
+        assert kernel.fitness_plan(E, m, 200).route == "wide"
+        wide = kernel.fitness_sq(il, w, target, att, limit)
+        narrow = kernel.fitness_sq(il, w[:P].contiguous(), target, att, limit)
+        torch.cuda.synchronize()
+        assert torch.equal(narrow, wide[:P])
+
+
+@pytest.mark.parametrize("P", [9, 103, 104, 105, 111, 112, 113, 199, 200,
+                               201])
+def test_cuda_fitness_wide_rows_local_across_tiles(cuda_device, P):
+    """Each row's sq depends on that row alone, wherever it sits in its
+    tile of BLOCK_INDIVIDUALS: the population shifted by one row, reversed,
+    and each tile's first and last row alone give the same bits.  Ragged
+    E and m, att < 0; within FIT_RTOL of the plain version."""
+    from repro_torch.kernels.recovery import kernel, ref
+    E, m = 1001, 258
+    il, w, target, att, limit = _fitness_spread(cuda_device, P, E, m, P,
+                                                -3.0, 40.0)
+    got = kernel.fitness_sq(il, w, target, att, limit)
+    want = ref.fitness_sq(il, w, target, att, limit)
+    shifted = kernel.fitness_sq(il, torch.cat([w[-1:], w]).contiguous(),
+                                target, att, limit)
+    flipped = kernel.fitness_sq(il, w.flip(0).contiguous(), target, att,
+                                limit)
+    T = kernel.BLOCK_INDIVIDUALS
+    edges = sorted({p for t in range(0, P, T) for p in (t, min(t + T, P) - 1)})
+    alone = [kernel.fitness_sq(il, w[p:p + 1].contiguous(), target, att,
+                               limit) for p in edges]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() / want.abs()).max().item() <= FIT_RTOL
+    assert torch.equal(shifted[1:], got) and torch.equal(flipped.flip(0), got)
+    for p, a in zip(edges, alone):
+        assert torch.equal(a, got[p:p + 1]), p
+
+
+# (B, S, H, D): the split's edges: one head (4 blocks of 16 columns at D
+# 64), rwkv6-1.6b's heads at a length one past a 64-token chunk, D 128 (16
+# blocks of 8 columns, 32-token chunks), D 16 (one block of 32 lanes), and
+# D 32 at a ragged length
+WKV_SPLIT_CASES = {"B1_H1_D64": (1, 300, 1, 64),
+                   "B1_H32_D64_S4097": (1, 4097, 32, 64),
+                   "B2_H3_D128": (2, 161, 3, 128),
+                   "B3_H2_D16": (3, 77, 2, 16),
+                   "B2_H2_D32": (2, 129, 2, 32)}
+
+
+def _decay(g, shape, near, dev, dtype):
+    """w near 0 (the model's exp(-exp(x)) at large x) or near 1."""
+    x = torch.rand(shape, generator=g)
+    w = 1e-6 + 1e-3 * x if near == "near0" else 0.999 + 0.00099 * x
+    return w.to(dev, dtype)
+
+
+@pytest.mark.parametrize("near", ["near0", "near1"])
+@pytest.mark.parametrize("dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=["fp32", "bf16_w_fp32", "bf16"])
+@pytest.mark.parametrize("case", list(WKV_SPLIT_CASES))
+def test_cuda_wkv6_split_matches_plain(cuda_device, case, dtype, w_dtype,
+                                       near):
+    """Shapes that cross the split of a head's state over blocks and lanes,
+    with w near 0 and near 1: each token's output within WKV_RTOL of the
+    plain version, bit-equal across calls; the plan's blocks cover every
+    column."""
+    from repro_torch.kernels.wkv6 import kernel, ref
+    B, S, H, D = WKV_SPLIT_CASES[case]
+    g = torch.Generator().manual_seed(B * S + H * D)
+    r, k, v = (torch.randn(B, S, H, D, generator=g).to(cuda_device, dtype)
+               for _ in range(3))
+    w = _decay(g, (B, S, H, D), near, cuda_device, w_dtype)
+    u = (torch.randn(H, D, generator=g) * 0.1).to(cuda_device)
+    plan = kernel.wkv_plan(B, H, D)
+    assert plan.blocks * plan.columns == B * H * D
+    got = kernel.wkv6(r, k, v, w, u)
+    again = kernel.wkv6(r, k, v, w, u)
+    want = ref.wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
+    assert torch.equal(got, again)
+    assert _row_err(got, want) <= WKV_RTOL[dtype]
+
+
+def test_cuda_wkv6_column_blocks_use_their_head(cuda_device):
+    """Heads with different bonus u and decay: a column block that took
+    another head's u, or the dot after the update, would leave the plain
+    version by more than WKV_RTOL; the kernel does not."""
+    from repro_torch.kernels.wkv6 import kernel, ref
+    B, S, H, D = 1, 200, 4, 64
+    g = torch.Generator().manual_seed(11)
+    r, k, v = (torch.randn(B, S, H, D, generator=g).to(cuda_device)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(B, S, H, D, generator=g) + 2.0).to(
+        cuda_device)
+    u = torch.randn(H, D, generator=g).to(cuda_device)
+    got = kernel.wkv6(r, k, v, w, u)
+    want = ref.wkv(r, k, v, w, u)
+    other_u = ref.wkv(r, k, v, w, u.roll(1, 0))
+    after = ref.wkv(r * w, k, v, w, torch.zeros_like(u)) + (
+        (r * k).sum(-1, keepdim=True)
+        + (r * u * k).sum(-1, keepdim=True)) * v
+    torch.cuda.synchronize()
+    assert _row_err(got, want) <= WKV_RTOL[torch.float32]
+    assert _row_err(other_u, want) > WKV_RTOL[torch.float32]
+    assert _row_err(after, want) > WKV_RTOL[torch.float32]
+
+
+def test_cuda_wkv6_copies_misaligned_rows(cuda_device):
+    """A view whose rows do not start on 16-byte boundaries (one element
+    into a flat buffer) is copied before the kernel's 16-byte copies read
+    it: the same result as from an aligned copy of it."""
+    from repro_torch.kernels.wkv6 import kernel
+    B, S, H, D = 1, 90, 2, 64
+    g = torch.Generator().manual_seed(13)
+    flat = torch.randn(B * S * H * D + 1, generator=g).to(
+        cuda_device, torch.bfloat16)
+    r = flat[1:].view(B, S, H, D)
+    k, v = (torch.randn(B, S, H, D, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+            for _ in range(2))
+    w = torch.sigmoid(torch.randn(B, S, H, D, generator=g)).to(cuda_device)
+    u = (torch.randn(H, D, generator=g) * 0.1).to(cuda_device)
+    assert not kernel._rows_aligned(r)
+    got = kernel.wkv6(r, k, v, w, u)
+    want = kernel.wkv6(r.clone(), k, v, w, u)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

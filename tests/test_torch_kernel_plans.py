@@ -143,7 +143,8 @@ def test_int8_wrapper_takes_fresh_rows_in_q_dtype():
 def test_fitness_plan_route_and_scratch(P):
     """P <= P_NARROW (the GA's polish, P 4, among them) takes the narrow
     kernel, with a per-run scratch of ceil(E / 8) x P; wider populations
-    take the wide kernel, with a per-tile scratch of ceil(E / 128) x P."""
+    take the wide kernel, with a per-tile scratch of ceil(E / 128) x P
+    and a grid of ceil(P / BLOCK_INDIVIDUALS) tiles of individuals."""
     E, m = 8192, 2048
     plan = rec_kernel.fitness_plan(E, m, P)
     if P <= rec_kernel.P_NARROW:
@@ -154,7 +155,8 @@ def test_fitness_plan_route_and_scratch(P):
     else:
         assert plan.route == "wide"
         assert plan.workspace == (E // rec_kernel.BLOCK_EVENTS, P)
-        assert plan.grid == (E // rec_kernel.BLOCK_EVENTS, -(-P // 64))
+        assert plan.grid == (E // rec_kernel.BLOCK_EVENTS,
+                             -(-P // rec_kernel.BLOCK_INDIVIDUALS))
 
 
 def test_fitness_polish_takes_the_narrow_kernel():
@@ -175,3 +177,36 @@ def test_fitness_plan_copy_width(E, m, aligned, vec16):
     plan = rec_kernel.fitness_plan(E, m, 3, aligned=aligned)
     assert plan.vec16 is vec16
     assert plan.workspace == (-(-E // rec_kernel.RUN_EVENTS), 3)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_wkv_plan_splits_each_head(D):
+    """The wkv kernel splits each head's D x D state over D / columns
+    blocks, a column over D / rows_per_lane lanes of one warp (4 rows a
+    lane, 8 at D 128), each lane keeping COLS_PER_LANE columns;
+    rwkv6-1.6b's B 1 x H 32 x D 64 gets 128 blocks of 4 warps, one for
+    each of 128 of the card's 132 SMs."""
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    plan = wkv_kernel.wkv_plan(1, 32, D)
+    assert D % plan.columns == 0 and plan.columns % 8 == 0
+    assert plan.lanes_per_column * wkv_kernel.rows_per_lane(D) == D
+    assert plan.lanes_per_column <= 16 and plan.threads % 32 == 0
+    assert plan.threads * wkv_kernel.COLS_PER_LANE == (
+        plan.columns * plan.lanes_per_column)
+    assert plan.columns % wkv_kernel.COLS_PER_LANE == 0
+    assert plan.threads <= 256 and plan.blocks == 32 * D // plan.columns
+    if D == 64:
+        assert plan.blocks == 128 and plan.threads == 128
+    assert wkv_kernel.wkv_plan(3, 5, D).blocks == 15 * D // plan.columns
+
+
+def test_wkv_rows_aligned_or_copied():
+    """Views whose rows start on 16-byte boundaries (the model's, a slice
+    of a fused projection) go to the kernel as they are; a view one
+    element off is copied first."""
+    from repro_torch.kernels.wkv6 import kernel as wkv_kernel
+    base = torch.zeros(2, 5, 3, 4, 64, dtype=torch.bfloat16)
+    assert wkv_kernel._rows_aligned(base[:, :, 1])
+    assert wkv_kernel._rows_aligned(torch.zeros(2, 5, 8, 16)[:, :, ::2])
+    flat = torch.zeros(2 * 5 * 4 * 64 + 1, dtype=torch.bfloat16)
+    assert not wkv_kernel._rows_aligned(flat[1:].view(2, 5, 4, 64))
