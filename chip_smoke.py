@@ -33,7 +33,12 @@ Phases, each raising on failure:
      bit-equal, outputs within the tolerance, which must lie below a walk
      that skips the scales and one that skips the scatter; the read-only
      walk over fp and int8 pools, pools unchanged, below a walk that drops
-     the last page (or skips the scales); copy_page on bf16, int8 and
+     the last page (or skips the scales); the fused update, fp and int8
+     pools, at the verify-chain shapes of speculative decoding (S = 2, 4,
+     5 rows a request, and the unified tick's S = 8 view of 5-row chains;
+     ragged chains crossing pages), pools bit-equal, below a walk that
+     skips the scatter and one without the causal mask inside the chain;
+     copy_page on bf16, int8 and
      fp32 scale pools with host and device ids, the destination bit-equal
      to the source in every layer, every other page untouched, a copy
      that stops at layer 0 reading above 0, and bad device ids setting
@@ -59,7 +64,22 @@ Phases, each raising on failure:
      suffixes and one prompt repeated in full (streams byte-equal to the cache off,
      hits, copy-on-write copies through copy_page).  Over the pools the
      int8 and fp runs filled, mid-decode, the read-only walk (the public
-     ``paged_attn.paged_attention``) against its plain version;
+     ``paged_attn.paged_attention``) against its plain version.  Then,
+     each run with the counts set to 0 just before it and the update
+     launching once per layer per pass: speculative decoding (4 requests,
+     prompt 32, generate 32, ``draft_k`` 4) on both ticks over fp pages,
+     and on the unified tick over int8 pages with the prefix cache (a
+     re-served prompt: copy_page under speculation), logging drafts,
+     accept rate and tokens a pass; ``preempt="swap"`` in 12 usable pages
+     (swapped pages above 0, every parked payload equal to its pages and
+     every restored page bit-equal to its payload, ms a page out and in);
+     each stream equal to the non-speculative run's or leaving it first
+     at a near-tie (top-2 margin under ``SPEC_TIE``, the paged step one
+     token a step); and the prefix cache's host tier (one slot, chunks of
+     3, two prompts sharing a 48-token system prompt in a pool of one
+     request's pages, the first re-served): host restores above 0,
+     restored pages bit-equal to the spilled bytes, streams byte-equal to
+     the cache off;
   6. device time per call (the median of CUDA events around each call,
      behind a queued sleep) of the kernel, its plain version and one
      PyTorch library call (``scaled_dot_product_attention`` over
@@ -188,6 +208,15 @@ TF_RATIO = 2.0           # phase 5: paged logits vs fp32, in units of the
 # softmax; both round the output to bf16, whose ulp is 2^-6 at |out| in
 # [2, 4).  Phase 3 prints what a known-wrong kernel gives beside it.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# phase 5b, speculation and swap at full width: a stream may leave the
+# non-speculative reference only at a near-tie, a token whose top-2 logit
+# margin there (the paged step, one token a step) is under SPEC_TIE.  A
+# token computed in a chain of W rows, or beside other rows, runs other
+# cuBLAS tiles and rounds otherwise: phase 5 prints such rounding between
+# two sound bf16 paths on these scaled weights, max|paged - generate|
+# teacher-forced, at 4.5625 logits on an H100 80GB HBM3 at 700 W, so a
+# margin under twice that can flip.
+SPEC_TIE = 9.125
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and op/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -419,15 +448,78 @@ def judge(name, err, tol, wrong, extra="", what="max|kernel - plain|"):
                              f"from a right one: {name}")
 
 
+def chain_unmasked(torch, c):
+    """Query positions under which every row of a request's chain sees the
+    whole chain: each live row takes its request's last position (what a
+    walk without the causal mask inside a verify chain would read)."""
+    last = c["pos"].max(dim=1, keepdim=True).values.expand_as(c["pos"])
+    return torch.where(c["pos"] >= 0, last, c["pos"])
+
+
+def verify_chain_cases(torch, dev, worst):
+    """The fused update, fp and int8 pools, at the verify-chain shapes of
+    speculative decoding: the two-dispatch tick's S = W rows a request (W
+    = 2, 4, 5 for draft_k 4: the last token and its draft) and the unified
+    tick's row_map view of 5-row chains (S = 8, padded), at gemma-2b's
+    width, chains ragged and crossing pages.  Live rows within the
+    tolerance, pools (and scale pools) bit-equal; the scatter skipped and
+    the chain without its causal mask must read above it."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+    gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=torch.bfloat16)
+    cases = [(f"S={S} B=4", dict(B=4, S=S, starts=[40, 15, 62, 7],
+                                 ns=[S, max(1, S - 1), S, 1], **gemma))
+             for S in (2, 4, 5)]
+    cases.append(("S=8 (the unified tick's view of 5-row chains) B=4",
+                  dict(B=4, S=8, starts=[40, 13, 62, 0], ns=[5, 3, 1, 0],
+                       **gemma)))
+    for i, (name, shape) in enumerate(cases):
+        c = quantized(torch, make_case(torch, dev, 700 + i, **shape))
+        live = c["pos"] >= 0
+        for quant in (False, True):
+            fn = call_int8 if quant else call
+            want = fn(ref.unified_attention_update, c)
+            got = fn(kernel.paged_attention_update, c)
+            torch.cuda.synchronize()
+
+            def max_err(out):
+                return (out.float() - want[0].float())[live].abs().max() \
+                    .item()
+
+            scales = (dict(k_scale=want[3], v_scale=want[4]) if quant
+                      else {})
+            wrong = {"scatter skipped": max_err(readonly(
+                         ref.paged_attention, c, quant)),
+                     "no causal mask in the chain": max_err(
+                         ref.paged_attention(
+                             c["q"], want[1], want[2], c["tables"],
+                             chain_unmasked(torch, c), window=c["window"],
+                             softcap=c["softcap"], max_live_blocks=c["live"],
+                             **scales))}
+            equal = all(torch.equal(got[j][1:], want[j][1:])
+                        for j in range(1, len(want)))
+            finite = bool(torch.isfinite(got[0].float()).all())
+            kind = "int8" if quant else "fp"
+            judge(f"verify chain, {kind} pools, gemma-2b {name}",
+                  max_err(got[0]), TOL["bfloat16"], wrong,
+                  f", pools bit-equal {equal}, finite {finite}")
+            if not (equal and finite):
+                raise AssertionError(f"verify chain: pools differ or "
+                                     f"non-finite output: {kind} {name}")
+            key = "int8" if quant else "verify"
+            worst[key] = max(worst[key], max_err(got[0]))
+
+
 def phase_family_vs_plain(torch, dev):
     """The int8 update, the read-only walk (fp and int8) and copy_page
-    against their plain versions at the main paths' shapes.  Returns the
-    worst max |kernel - plain| of each: {"int8", "readonly", "copy"}."""
+    against their plain versions at the main paths' shapes, and the fused
+    update at the verify-chain shapes.  Returns the worst max |kernel -
+    plain| of each: {"int8", "readonly", "copy", "verify"} ("verify": the
+    fp update at the chain shapes; int8 chains count under "int8")."""
     from repro_torch.kernels.paged_attention import kernel, ref
     bf16, f32 = torch.bfloat16, torch.float32
     gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=bf16)
     granite = dict(H=32, Hkv=8, D=64, BS=16, dtype=bf16)
-    worst = {"int8": 0.0, "readonly": 0.0, "copy": 0.0}
+    worst = {"int8": 0.0, "readonly": 0.0, "copy": 0.0, "verify": 0.0}
     # -- the fused update over int8 pools: pools bit-equal ----------------
     cases = [
         ("int8 gemma-2b decode S=1 B=4", dict(
@@ -481,6 +573,7 @@ def phase_family_vs_plain(torch, dev):
             raise AssertionError(f"int8 update: pools differ or non-finite "
                                  f"output: {name}")
         worst["int8"] = max(worst["int8"], max_err(got[0]))
+    verify_chain_cases(torch, dev, worst)
     # -- the read-only walk, fp and int8: pools unchanged -----------------
     cases = [
         ("gemma-2b decode S=1 B=4", dict(
@@ -655,19 +748,15 @@ def profiled(torch, fn, n):
     return device_kernels(torch, prof)
 
 
-def teacher_forced(torch, dev, cfg, params, seq, P, BS):
-    """Logits of the token sequences ``seq`` (B, T) three ways: through
-    the paged step on the kernel (the prompt in chunks of BS, then one
-    token per step, as the engine feeds them), through the dense bf16
-    ``forward`` the oracle uses, and through ``forward`` in fp32.  Returns
-    max |paged - bf16|, max |paged - fp32|, max |bf16 - fp32|."""
-    import dataclasses
-    from repro_torch.models import model as M
-    from repro_torch.models.layers import logits_from_hidden
+def paged_logits(torch, dev, cfg, params, seq, P, BS, kv_dtype=None):
+    """fp32 logits of the token sequences ``seq`` (B, T) through the paged
+    step on the kernel: the prompt in chunks of BS, then one token per
+    step, as the engine feeds them (``kv_dtype``: the pools' type)."""
     from repro_torch.serving.paged_attn import init_paged_cache, paged_step
     B, T = seq.shape
     MB = -(-T // BS)
-    cache = init_paged_cache(cfg, 1 + B * MB, BS, device=dev)
+    cache = init_paged_cache(cfg, 1 + B * MB, BS, device=dev,
+                             kv_dtype=kv_dtype)
     tables = (1 + torch.arange(B * MB, dtype=torch.int32,
                                device=dev)).reshape(B, MB)
     chunks = [(s, min(s + BS, P)) for s in range(0, P, BS)]
@@ -679,8 +768,18 @@ def teacher_forced(torch, dev, cfg, params, seq, P, BS):
         lg, cache = paged_step(cfg, params, cache, seq[:, a:b], pos, tables,
                                max_live_blocks=(b - 1) // BS + 1)
         paged.append(lg.float())
-    paged = torch.cat(paged, dim=1)[..., :cfg.vocab]
-    del cache
+    return torch.cat(paged, dim=1)[..., :cfg.vocab]
+
+
+def teacher_forced(torch, dev, cfg, params, seq, P, BS):
+    """Logits of the token sequences ``seq`` (B, T) three ways: through
+    the paged step on the kernel (:func:`paged_logits`), through the dense
+    bf16 ``forward`` the oracle uses, and through ``forward`` in fp32.
+    Returns max |paged - bf16|, max |paged - fp32|, max |bf16 - fp32|."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_from_hidden
+    paged = paged_logits(torch, dev, cfg, params, seq, P, BS)
 
     def dense(c, p):
         return logits_from_hidden(p, M.forward(c, p, {"tokens": seq}),
@@ -1030,6 +1129,250 @@ def phase_full_width_options(torch, dev, full, worst):
         raise AssertionError("prefix cache: no hit, or no copy-on-write "
                              "through copy_page")
     out["copy"] = c["copy"]
+    return out
+
+
+def stepwise_margins(torch, dev, cfg, params, seq, P, BS, kv_dtype=None):
+    """Top-2 logit margins of :func:`paged_logits` (the non-speculative
+    engine's feeding): ``[b, p]`` is the gap between the two largest
+    logits that predict token ``p + 1``."""
+    top2 = torch.topk(paged_logits(torch, dev, cfg, params, seq, P, BS,
+                                   kv_dtype), 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu()
+
+
+def near_ties(label, got, want, margins, P):
+    """Hold streams ``got`` to the reference streams ``want``: equal, or
+    leaving them first where the reference's top-2 margin (``margins``,
+    from :func:`stepwise_margins` over prompt + ``want``) is under
+    ``SPEC_TIE``.  Returns how many streams are identical."""
+    exact = 0
+    for b, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w):
+            raise AssertionError(f"{label}: request {b} served {len(g)} "
+                                 f"tokens, the reference {len(w)}")
+        t = next((i for i in range(len(w)) if g[i] != w[i]), None)
+        if t is None:
+            exact += 1
+            continue
+        gap = margins[b, P + t - 1].item()
+        log(f"[spec] {label}: request {b} first leaves the reference at "
+            f"token {t}: its top-2 margin {gap:.4f} (a near-tie under "
+            f"{SPEC_TIE:g})")
+        if not gap < SPEC_TIE:
+            raise AssertionError(f"{label}: request {b} diverges at token "
+                                 f"{t} with a clear top-2 margin {gap}")
+    log(f"[spec] {label}: {exact}/{len(want)} streams identical to the "
+        f"reference")
+    return exact
+
+
+def watch_host_copies(torch, eng):
+    """Instrument ``eng``'s host copies (swap out and in, spill, restore):
+    each payload must equal the device pages it was taken from, and each
+    copy back must leave the pages bit-equal to the payload.  Returns the
+    tally {"out", "in": [calls, pages, seconds], "equal": bool}."""
+    tally = {"out": [0, 0, 0.0], "in": [0, 0, 0.0], "equal": True}
+    to_host, from_host = eng._pages_to_host, eng._pages_from_host
+
+    def pages_to_host(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = to_host(blocks)
+        tally["out"][2] += time.perf_counter() - t0
+        tally["out"][0] += 1
+        tally["out"][1] += len(blocks)
+        idx = torch.tensor(blocks, dtype=torch.long, device=eng.device)
+        tally["equal"] &= all(torch.equal(pool[:, idx].cpu(), payload[n])
+                              for n, pool in eng.cache.items())
+        return payload
+
+    def pages_from_host(blocks, payload):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        from_host(blocks, payload)
+        torch.cuda.synchronize()
+        tally["in"][2] += time.perf_counter() - t0
+        tally["in"][0] += 1
+        tally["in"][1] += len(blocks)
+        idx = torch.tensor(blocks, dtype=torch.long, device=eng.device)
+        tally["equal"] &= all(torch.equal(pool[:, idx].cpu(), payload[n])
+                              for n, pool in eng.cache.items())
+
+    eng._pages_to_host = pages_to_host
+    eng._pages_from_host = pages_from_host
+    return tally
+
+
+def phase_full_width_spec_swap(torch, dev, full):
+    """gemma-2b at full width through speculative decoding, swap
+    preemption and the host tier, each run with the launch counts set to
+    0 just before it.  Returns {path: launch counts}."""
+    import numpy as np
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serving import PagedServingEngine
+    cfg, params, prompts = full["cfg"], full["params"], full["prompts"]
+    (B, P), G, BS = prompts.shape, 32, 16
+    L = cfg.n_layers
+    kw = dict(max_slots=B, block_size=BS, max_blocks_per_seq=-(-(P + G) // BS),
+              device=dev)
+    out = {}
+
+    def run(label, waves, **ekw):
+        eng = PagedServingEngine(cfg, params, **dict(kw, **ekw))
+        tally = watch_host_copies(torch, eng)
+        torch.cuda.synchronize()
+        zero_counts(kernel)
+        t0 = time.perf_counter()
+        streams = serve(eng, waves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts(kernel)
+        out[label] = c
+        m = eng.metrics()
+        upd = c["int8"] if eng.kv_dtype == "int8" else c["fp"]
+        n_tok = sum(len(t) for t in streams)
+        log(f"[spec] {label}: {eng.dispatches} passes, {wall:.3f} s, "
+            f"{n_tok / eng.dispatches:.3f} tokens a pass; launches {c} "
+            f"({upd / max(1, eng.dispatches * L):g} update launches a pass "
+            f"and layer)")
+        if upd != L * eng.dispatches or upd == 0:
+            raise AssertionError(f"{label}: the update kernel did not run "
+                                 f"once per layer per pass")
+        return eng, streams, m, tally, c
+
+    waves = [[(row, G) for row in prompts]]
+    # -- the non-speculative reference and its top-2 margins ------------
+    _, base, _, _, _ = run("speculate=False, fp pages", waves)
+    seq = torch.from_numpy(np.concatenate(
+        [prompts, np.asarray(base, np.int32)], axis=1)).to(dev)
+    margins = stepwise_margins(torch, dev, cfg, params, seq, P, BS)
+    # -- speculation, both ticks, fp pages ----------------------------
+    for unified in (True, False):
+        tick = "unified" if unified else "two-dispatch"
+        label = f"speculate, {tick} tick, fp pages"
+        eng, streams, m, _, _ = run(label, waves, speculate=True, draft_k=4,
+                                    unified=unified)
+        sp = m["speculative"]
+        log(f"[spec] {label}: drafted {sp['drafted_tokens']}, accepted "
+            f"{sp['accepted_tokens']} (accept rate {sp['accept_rate']:.3f})")
+        if not sp["drafted_tokens"] > 0:
+            raise AssertionError(f"{label}: nothing was drafted")
+        varied(label, streams)
+        near_ties(label, streams, base, margins, P)
+        out[label]["accept_rate"] = sp["accept_rate"]
+        out[label]["tokens_per_pass"] = B * G / eng.dispatches
+    # -- speculation over int8 pools with the prefix cache: the re-served
+    # prompt recomputes its last token into a copy-on-write page --------
+    waves8 = waves + [[(prompts[0].copy(), G)]]
+    _, base8, _, _, _ = run("speculate=False, int8 pages, prefix cache",
+                            waves8, kv_dtype="int8", prefix_cache=True)
+    seq8 = torch.from_numpy(np.concatenate(
+        [np.concatenate([prompts, prompts[:1]]), np.asarray(base8, np.int32)],
+        axis=1)).to(dev)
+    margins8 = stepwise_margins(torch, dev, cfg, params, seq8, P, BS,
+                                kv_dtype="int8")
+    label = "speculate, unified tick, int8 pages, prefix cache"
+    eng, streams, m, _, c = run(label, waves8, speculate=True, draft_k=4,
+                                kv_dtype="int8", prefix_cache=True)
+    sp, pc = m["speculative"], m["prefix_cache"]
+    log(f"[spec] {label}: drafted {sp['drafted_tokens']}, accepted "
+        f"{sp['accepted_tokens']} (accept rate {sp['accept_rate']:.3f}); "
+        f"prefix hits {pc['hit_tokens']}, copy-on-write copies "
+        f"{pc['cow_copies']}")
+    if not (sp["drafted_tokens"] > 0 and pc["cow_copies"] > 0
+            and c["copy"] == len(eng.cache) * pc["cow_copies"]):
+        raise AssertionError(f"{label}: no draft, or no copy-on-write "
+                             f"through copy_page")
+    varied(label, streams)
+    near_ties(label, streams, base8, margins8, P)
+    # -- swap preemption: 12 usable pages for 4 requests of 4 pages ------
+    label = "preempt=swap, 12 usable pages"
+    eng, streams, m, tally, _ = run(label, waves, preempt="swap",
+                                    num_blocks=13)
+    u = m["blocks"]
+    n_out, p_out, s_out = tally["out"]
+    n_in, p_in, s_in = tally["in"]
+    page_bytes = sum(pool[:, 0].numel() * pool.element_size()
+                     for pool in eng.cache.values())
+    log(f"[spec] {label}: preemptions {m['scheduler']['preemptions']}, "
+        f"swapped out {u['swapped_out_pages']} / in {u['swapped_in_pages']} "
+        f"pages, host pages after the drain {u['host_pages']}; {n_out} "
+        f"copies out ({p_out} pages, {1e3 * s_out / max(1, p_out):.4f} ms a "
+        f"page), {n_in} in ({p_in} pages, {1e3 * s_in / max(1, p_in):.4f} "
+        f"ms a page), {page_bytes} bytes a page (every layer, K and V); "
+        f"parked and restored pages bit-equal {tally['equal']}")
+    if not (u["swapped_out_pages"] > 0 and p_in == u["swapped_in_pages"]
+            == u["swapped_out_pages"] and tally["equal"]
+            and u["host_pages"] == 0):
+        raise AssertionError(f"{label}: no swap, a page not restored "
+                             f"bit-equal, or a payload left parked")
+    varied(label, streams)
+    near_ties(label, streams, base, margins, P)
+    out[label]["ms_per_page_out"] = 1e3 * s_out / max(1, p_out)
+    out[label]["ms_per_page_in"] = 1e3 * s_in / max(1, p_in)
+    out[label]["pages"] = p_out
+    # the host copies alone, over the drained engine's pools: n pages out
+    # and back onto themselves, the median of 10 calls each (host clock
+    # around blocking copies)
+    for n in (1, 4, 12):
+        blocks = list(range(1, n + 1))
+        t_out, t_in = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = PagedServingEngine._pages_to_host(eng, blocks)
+            t1 = time.perf_counter()
+            PagedServingEngine._pages_from_host(eng, blocks, payload)
+            torch.cuda.synchronize()
+            t_out.append(t1 - t0)
+            t_in.append(time.perf_counter() - t1)
+        ms = (1e3 * float(np.median(t_out)) / n,
+              1e3 * float(np.median(t_in)) / n)
+        log(f"[spec] host copies of {n} pages ({n * page_bytes} bytes), the "
+            f"median of 10: out {ms[0]:.4f} ms a page "
+            f"({page_bytes / ms[0] / 1e6:.2f} GB/s), in {ms[1]:.4f} ms "
+            f"a page ({page_bytes / ms[1] / 1e6:.2f} GB/s)")
+        out[label][f"copy_ms_per_page_{n}"] = ms
+    # a speculative decode tick's breakdown, as phase 5's (160 tokens a
+    # request, so that its 20 ticks of up to 5 tokens a request decode)
+    tick_breakdown(torch, cfg, params, prompts, 160,
+                   dict(kw, max_blocks_per_seq=-(-(P + 160) // BS),
+                        speculate=True, draft_k=4),
+                   label=" speculative (draft_k 4)")
+    # -- the host tier: two prompts with a shared 48-token system prompt
+    # and 112-token suffixes, the first re-served after the second
+    # evicted its suffix pages from a pool of one request's 11 pages:
+    # the re-serve restores them from host RAM.  One slot, chunks of 3,
+    # as phase 5b's prefix-cache comparison, so both runs compute every
+    # token in the same shapes ------------------------------------------
+    rng = np.random.default_rng(3)
+    sysp = rng.integers(0, cfg.vocab, 3 * BS, dtype=np.int32)
+    two = [np.concatenate([sysp, rng.integers(0, cfg.vocab, 7 * BS,
+                                              dtype=np.int32)])
+           for _ in range(2)]
+    hwaves = [[(two[0], 8)], [(two[1], 8)], [(two[0].copy(), 8)]]
+    hkw = dict(max_slots=1, max_blocks_per_seq=11, num_blocks=12,
+               prefill_chunk=3)
+    _, off, _, _, _ = run("cache off, one slot, chunks of 3", hwaves, **hkw)
+    label = "prefix cache + host tier (8 pages), one slot, chunks of 3"
+    eng, on, m, tally, c = run(label, hwaves, prefix_cache=True,
+                               host_cache_pages=8, **hkw)
+    u, pc = m["blocks"], m["prefix_cache"]
+    log(f"[spec] {label}: spills {u['host_cache_spills']}, host restores "
+        f"{u['host_cache_hits']} ({tally['in'][1]} pages copied back, "
+        f"{1e3 * tally['in'][2] / max(1, tally['in'][1]):.4f} ms a page), "
+        f"prefix hits {pc['hit_tokens']} of {pc['lookup_tokens']} tokens, "
+        f"copy-on-write copies {pc['cow_copies']}; restored pages "
+        f"bit-equal to the spilled bytes {tally['equal']}; streams "
+        f"byte-equal to the cache off: {[a == b for a, b in zip(on, off)]}")
+    if not (u["host_cache_hits"] > 0 and tally["equal"]):
+        raise AssertionError(f"{label}: no prefix hit from host RAM, or a "
+                             f"restored page differs from its spill")
+    if on != off:
+        raise AssertionError(f"{label}: streams differ from the cache off")
+    varied(label, on)
+    out[label]["host_restores"] = u["host_cache_hits"]
     return out
 
 
@@ -2621,6 +2964,7 @@ def main():
     phase_reduced_exact(torch, dev)
     full = phase_full_width(torch, dev)
     family_launches = phase_full_width_options(torch, dev, full, family_err)
+    spec_launches = phase_full_width_spec_swap(torch, dev, full)
     fp_launches = full["launches"]
     del full                            # the full-width weights
     timing = phase_timing(torch, dev)
@@ -2651,18 +2995,26 @@ def main():
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, **t}
 
+    def paths(key):
+        """A kernel's launches on each of phase 5b's speculation, swap and
+        host-tier runs that launched it."""
+        return {"launches_by_path": {label: c[key]
+                                     for label, c in spec_launches.items()
+                                     if c[key]}}
+
     report = {"kernels": [
         entry("paged_attention_update", KERNEL_SOURCE, KERNEL_REPLACES,
-              fp_launches, max_err, dec),
+              fp_launches, max(max_err, family_err["verify"]),
+              dict(dec, **paths("fp"))),
         entry("paged_attention_update_int8", KERNEL_SOURCE, INT8_REPLACES,
               family_launches["int8"], family_err["int8"],
-              family_timing["int8 decode"]),
+              dict(family_timing["int8 decode"], **paths("int8"))),
         entry("paged_attention", KERNEL_SOURCE, READONLY_REPLACES,
               family_launches["readonly"], family_err["readonly"],
               family_timing["read-only fp"]),
         entry("copy_page", COPY_SOURCE, COPY_REPLACES,
               family_launches["copy"], family_err["copy"],
-              family_timing["copy_page"]),
+              dict(family_timing["copy_page"], **paths("copy"))),
         entry("flash_attention_pallas", FLASH_SOURCE,
               FLASH_REPLACES["fwd"], train["launches"]["fwd"],
               flash_err["fwd"], flash_time[("(a)", "fwd")]),

@@ -325,13 +325,16 @@ class Platform:
         land in the run's outdir for ``get_results``.
 
         prefix_cache: automatic prefix caching with copy-on-write pages;
-        kv_dtype: ``"fp"`` or ``"int8"`` KV pages (see the engine).
+        speculate / draft_k: self-speculative decoding, byte-identical
+        streams, drafted and accepted totals in ``metrics["speculative"]``;
+        kv_dtype: ``"fp"`` or ``"int8"`` KV pages; preempt: ``"recompute"``
+        or ``"swap"`` (a victim's pages parked in host RAM);
+        host_cache_pages: the host tier of evicted prefix-cache pages (see
+        the engine; swap and spill counters under ``metrics["blocks"]``).
 
         Not ported yet, each raising ``NotImplementedError`` with its
-        ROADMAP item: ``open_loop``, ``replicas > 1``, ``speculate`` (and
-        so ``draft_k``), ``preempt="swap"``, ``host_cache_pages`` and a
-        cluster with ``tp_size > 1`` (``routing`` only matters with
-        replicas).
+        ROADMAP item: ``open_loop``, ``replicas > 1`` and a cluster with
+        ``tp_size > 1`` (``routing`` only matters with replicas).
         """
         cluster = self._cluster(name)
         if cluster.tp_size != cluster.size:
@@ -345,10 +348,6 @@ class Platform:
         for lacking, option, item in (
                 (open_loop is not None, "open_loop", "Queue 1 item 9"),
                 (replicas > 1, "replicas > 1", "Queue 1 item 9"),
-                (speculate, "speculate=True", "Queue 1 item 6"),
-                (preempt == "swap", "preempt='swap'", "Queue 1 item 6"),
-                (host_cache_pages > 0, "host_cache_pages",
-                 "Queue 1 item 6"),
                 (cluster.tp_size > 1, "serving on a cluster with "
                  "tp_size > 1", "Queue 1 item 13")):
             if lacking:
@@ -362,7 +361,9 @@ class Platform:
 
             eng = PagedServingEngine(cfg, params, token_budget=token_budget,
                                      prefix_cache=prefix_cache,
+                                     speculate=speculate, draft_k=draft_k,
                                      kv_dtype=kv_dtype, preempt=preempt,
+                                     host_cache_pages=host_cache_pages,
                                      device=ctx.cluster.master,
                                      **engine_kwargs)
             ids = [eng.submit(p, g) for p, g in requests]

@@ -86,9 +86,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="automatic prefix caching: ref-counted pages, "
                          "content-hash prompt matching, copy-on-write "
                          "(DESIGN.md §9)")
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-speculative decoding: n-gram drafts "
+                         "verified in the tick, byte-identical greedy "
+                         "streams (DESIGN.md §11)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="most draft tokens a request proposes a tick "
+                         "(with --speculate)")
     ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
                     help="KV page storage: 'int8' stores pages quantized "
                          "with per-row fp32 scales (DESIGN.md §13)")
+    ap.add_argument("--preempt", choices=("recompute", "swap"),
+                    default="recompute",
+                    help="preemption: 'swap' parks the victim's KV pages "
+                         "in host RAM and copies them back on resume "
+                         "instead of recomputing (DESIGN.md §13)")
+    ap.add_argument("--host-cache-pages", type=int, default=0,
+                    help="host-RAM tier, in pages, for evicted "
+                         "prefix-cache pages (with --prefix-cache; 0 "
+                         "disables it)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0,
@@ -96,10 +112,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = ap.parse_args(argv)
     if args.engine != "paged" and (args.token_budget or
                                    args.tick != "unified" or
-                                   args.prefix_cache or
-                                   args.kv_dtype != "fp"):
-        ap.error("--token-budget/--tick/--prefix-cache/--kv-dtype are "
-                 "paged-engine knobs")
+                                   args.prefix_cache or args.speculate or
+                                   args.kv_dtype != "fp" or
+                                   args.preempt != "recompute" or
+                                   args.host_cache_pages):
+        ap.error("--token-budget/--tick/--prefix-cache/--speculate/"
+                 "--kv-dtype/--preempt/--host-cache-pages are paged-engine "
+                 "knobs")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -148,7 +167,9 @@ def _serve_paged(cfg, params, prompts: np.ndarray, args
         max_blocks_per_seq=-(-max_seq // args.block_size),
         token_budget=args.token_budget or None,
         unified=args.tick == "unified", prefix_cache=args.prefix_cache,
-        kv_dtype=args.kv_dtype, device=args.device)
+        speculate=args.speculate, draft_k=args.draft_k,
+        kv_dtype=args.kv_dtype, preempt=args.preempt,
+        host_cache_pages=args.host_cache_pages, device=args.device)
     t0 = time.time()
     for row in prompts:
         eng.submit(row, args.gen)

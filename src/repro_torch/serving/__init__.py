@@ -2,17 +2,22 @@
 
 Components:
     blocks      — pooled fixed-size KV pages, ref-counted allocator, block
-                  tables (a copy of ``repro/serving/blocks.py``)
+                  tables, host swap and spill tiers (a copy of
+                  ``repro/serving/blocks.py``)
     paged_attn  — cache init + the per-tick unified step over the op
                   boundary in ``repro_torch.kernels.paged_attention``
     engine      — PagedServingEngine: unified ragged tick, token budget,
-                  FCFS admission, recompute preemption
+                  FCFS admission, recompute or swap preemption, prefix
+                  cache with a host tier, speculative decoding
     scheduler   — FCFS admission, preemption policies, latency accounting
                   (a copy of ``repro/serving/scheduler.py``)
+    speculative — the n-gram drafter (a copy of
+                  ``repro/serving/speculative.py``)
 """
 from repro_torch.serving.blocks import BlockAllocator, BlockTable
 from repro_torch.serving.engine import PagedServingEngine
 from repro_torch.serving.scheduler import FCFSScheduler, RequestStats
+from repro_torch.serving.speculative import NGramDrafter
 
-__all__ = ["BlockAllocator", "BlockTable", "FCFSScheduler",
+__all__ = ["BlockAllocator", "BlockTable", "FCFSScheduler", "NGramDrafter",
            "PagedServingEngine", "RequestStats"]

@@ -1,5 +1,9 @@
 """KV-page bookkeeping: a ref-counted block allocator with a prefix cache,
-and per-request block tables with copy-on-write fork support.
+and per-request block tables with copy-on-write fork support.  A copy of
+``repro/serving/blocks.py`` with one difference: :meth:`BlockAllocator
+.allocate` takes ``avoid=``, the pages that eviction must not take (the
+engine's prefix walk passes the pages it matched before a host-tier
+restore; see ``engine.PagedServingEngine._restore_host_page``).
 
 The KV cache is one pooled array of ``num_blocks`` fixed-size pages per
 layer (see ``paged_attn.init_paged_cache``); requests own pages through a
@@ -31,7 +35,7 @@ inactive decode slots route their writes there, so it is never handed out
 and its contents are garbage by design (always masked at read time).
 
 The allocator also fronts the *host swap tier* (DESIGN.md §13): preempted
-requests can park their page payloads in pinned host RAM
+requests can park their page payloads in host RAM
 (:meth:`BlockAllocator.swap_out` / :meth:`swap_in`) instead of recomputing
 them, and zero-ref cached pages evicted under pool pressure can spill
 their bytes to a digest-keyed host prefix cache (``spill_hook`` +
@@ -43,7 +47,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict, deque
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Collection, Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -177,15 +181,19 @@ class BlockAllocator:
                              f"[1, {self.num_blocks})")
         return blk
 
-    def allocate(self) -> Optional[int]:
+    def allocate(self, avoid: Collection[int] = ()) -> Optional[int]:
         """One private page (ref count 1), or None when the pool is
         exhausted.  Free pages are handed out first; under pressure the
-        least-recently-used *cached* page is evicted (its hash entry is
-        dropped, so later lookups of that prefix simply miss)."""
+        least-recently-used *cached* page not in ``avoid`` is evicted (its
+        hash entry is dropped, so later lookups of that prefix simply
+        miss)."""
         if self._free:
             blk = self._free.popleft()
-        elif self._cached:
-            blk, digest = self._cached.popitem(last=False)   # LRU end
+        else:
+            blk = next((b for b in self._cached if b not in avoid), None)
+            if blk is None:
+                return None
+            digest = self._cached.pop(blk)              # LRU end first
             if self.spill_hook is not None and self.host_cache_pages > 0 \
                     and digest not in self._host_cache:
                 # last chance to keep the page's bytes: the engine's hook
@@ -195,8 +203,6 @@ class BlockAllocator:
             del self._hash_index[digest]
             self._page_hash[blk] = None
             self.cache_evictions += 1
-        else:
-            return None
         self._refs[blk] = 1
         self._in_use += 1
         self.total_allocated += 1

@@ -11,19 +11,24 @@ What is ported:
     the (R, W) greedy argmax ids come back, as in the JAX engine;
   * the two-dispatch tick (``unified=False``): one ``paged_step`` pass for
     the prefill chunks, then one for the decodes;
-  * FCFS admission, and recompute preemption when the page pool runs dry
-    mid-decode (admission never preempts);
+  * FCFS admission, and preemption when the page pool runs dry mid-decode
+    (admission never preempts): the victim's pages are recomputed
+    (``preempt="recompute"``) or parked in host RAM and restored on
+    resume (``preempt="swap"``, DESIGN.md §13);
   * int8 KV pools (``kv_dtype="int8"``, DESIGN.md §13);
   * the prefix cache (``prefix_cache=True``, DESIGN.md §9): content-hashed
     full pages, shared by incref at admission, copied on the device
-    (``ops.copy_page``) before a request writes into a shared page;
+    (``ops.copy_page``) before a request writes into a shared page; with
+    ``host_cache_pages`` evicted pages spill to a host tier and a later
+    prefix match restores them;
+  * self-speculative decoding (``speculate=True``, DESIGN.md §11): n-gram
+    drafts ride the tick as verify chains of up to ``draft_k + 1`` rows a
+    request, accepted by exact greedy match;
   * telemetry (``repro_torch.obs``) and the ``metrics()`` report.
 
-Options of later slices raise ``NotImplementedError`` naming their
-ROADMAP.md item: ``speculate``, ``preempt="swap"``, ``host_cache_pages``
-and ``mesh``.  (Their messages keep the item numbers the ROADMAP had when
-the gates were written: "Queue 1 item 6" for the serving options, "Queue 1
-item 13" for ``mesh``.)
+``mesh`` (tensor-parallel serving) raises ``NotImplementedError`` naming
+its ROADMAP.md item.  (The message keeps the item number the ROADMAP had
+when the gate was written, "Queue 1 item 13".)
 
 Correctness contract (tested): a request served through this engine yields
 exactly the tokens the port's isolated greedy ``launch.serve.generate``
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Collection, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ from repro_torch.obs import ServingTelemetry
 from repro_torch.serving import paged_attn
 from repro_torch.serving.blocks import BlockAllocator, BlockTable, page_digest
 from repro_torch.serving.scheduler import FCFSScheduler
+from repro_torch.serving.speculative import NGramDrafter
 
 IDLE, PREFILL, DECODE = "idle", "prefill", "decode"
 
@@ -82,7 +88,8 @@ class PagedServingEngine:
         >>> rid = eng.submit(prompt_tokens, max_new_tokens=32)
         >>> results = eng.run_to_completion()      # {req_id: [token, ...]}
 
-    or stream via ``step()`` (returns ``{req_id: token}`` per tick).
+    or stream via ``step()`` (returns ``{req_id: token}`` per tick, or
+    ``{req_id: [token, ...]}`` with ``speculate=True``).
 
     Args:
         cfg: a dense decoder-only ``ModelConfig``.
@@ -110,6 +117,16 @@ class PagedServingEngine:
             the tail.  A write into a shared page first copies it on the
             device (``ops.copy_page`` over every pool of the cache).
             Streams are byte-identical with the cache on or off.
+        speculate: self-speculative decoding (DESIGN.md §11).  Each
+            decoding request keeps an n-gram index over its prompt and
+            accepted tokens (:class:`~repro_torch.serving.speculative
+            .NGramDrafter`) and proposes up to ``draft_k`` tokens a tick;
+            the chain rides the tick scored at every position, and the
+            longest prefix the greedy argmax reproduces is accepted plus
+            one bonus token.  Streams are byte-identical to greedy
+            decoding; rejected rows only rewind ``slot_filled`` (their K/V
+            is overwritten before any accepted row can attend to it).
+        draft_k: most draft tokens a request proposes a tick (>= 1).
         telemetry: ``True`` (default) records one trace event per tick,
             request spans and latency histograms (``metrics()``,
             :meth:`dump_trace`); ``False`` records nothing.
@@ -121,6 +138,20 @@ class PagedServingEngine:
             and kv head in parallel scale pools), ``head_dim + 4`` bytes
             per row and head instead of ``head_dim * itemsize``.  Streams
             may differ from fp pages (quantization is lossy).
+        preempt: what preemption does with a victim's pages (DESIGN.md
+            §13).  ``"recompute"`` frees them and re-prefills on
+            re-admission; ``"swap"`` first copies the written pages of
+            every pool to host RAM (``BlockAllocator.swap_out``) and
+            re-admission copies them back into fresh pages: the same
+            streams, no re-prefill.
+        host_cache_pages: capacity in pages of the digest-keyed host
+            prefix cache: a zero-ref cached page evicted under pool
+            pressure first copies its bytes there, and a later prefix
+            match restores them into a fresh page instead of
+            re-prefilling.  0 disables it.
+        swap_pages_per_tick: soft cap on pages swapped in a tick
+            (``preempt="swap"``); a tick's first resume always proceeds.
+            ``None``: no cap.
         live_block_quantum: floor for the live-block bound before
             power-of-two bucketing.
         device: where the cache lives and the ticks run; ``cuda`` unless
@@ -137,12 +168,14 @@ class PagedServingEngine:
                  unified: bool = True,
                  prefix_cache: bool = False,
                  speculate: bool = False,
+                 draft_k: int = 4,
                  telemetry: bool = True,
                  trace_capacity: int = 4096,
                  preemption_policy: str = "longest",
                  kv_dtype: Optional[str] = None,
                  preempt: str = "recompute",
                  host_cache_pages: int = 0,
+                 swap_pages_per_tick: Optional[int] = None,
                  live_block_quantum: int = 4,
                  mesh=None,
                  device: DeviceLike = None,
@@ -150,18 +183,16 @@ class PagedServingEngine:
         if not paged_attn.supports(cfg):
             raise ValueError("paged engine needs a pure-attention "
                              "decoder-only arch")
-        if speculate:
-            raise _later("speculate=True", "Queue 1 item 6")
         if kv_dtype not in (None, "fp", "int8"):
             raise ValueError(f"kv_dtype must be None, 'fp' or 'int8', "
                              f"got {kv_dtype!r}")
-        if preempt == "swap":
-            raise _later("preempt='swap'", "Queue 1 item 6")
-        if preempt != "recompute":
+        if preempt not in ("recompute", "swap"):
             raise ValueError(f"preempt must be 'recompute' or 'swap', "
                              f"got {preempt!r}")
-        if host_cache_pages:
-            raise _later("host_cache_pages", "Queue 1 item 6")
+        if swap_pages_per_tick is not None and swap_pages_per_tick < 1:
+            raise ValueError("swap_pages_per_tick must be >= 1 or None")
+        if draft_k < 1:
+            raise ValueError("draft_k must be >= 1")
         if mesh is not None:
             raise _later("mesh= (tensor-parallel serving)",
                          "Queue 1 item 13")
@@ -186,6 +217,17 @@ class PagedServingEngine:
         self.unified = unified
         self.prefix_cache = prefix_cache
         self.kv_dtype = "int8" if kv_dtype == "int8" else "fp"
+        self.preempt = preempt
+        self.swap_pages_per_tick = swap_pages_per_tick
+        # req_id -> (handle, phase, filled, chain) of swapped-out requests
+        # waiting to copy their pages back
+        self._swap_handles: Dict[int, tuple] = {}
+        self._tick_swap = [0, 0]       # [pages in, pages out] this tick
+        self.speculate = speculate
+        self.draft_k = draft_k
+        self.spec_drafted_total = 0    # draft tokens packed into passes
+        self.spec_accepted_total = 0   # of those, accepted by the verify
+        self._tick_spec = [0, 0]       # [drafted, accepted] this tick
         self.live_block_quantum = live_block_quantum
         self.dispatches = 0            # step passes launched so far
         self.prefix_hit_tokens = 0     # prompt tokens served from the cache
@@ -217,7 +259,10 @@ class PagedServingEngine:
         self.alloc = BlockAllocator(self.num_blocks, block_size,
                                     page_bytes_per_shard=page_bytes,
                                     kv_dtype=self.kv_dtype,
-                                    fp_page_bytes_per_shard=fp_page_bytes)
+                                    fp_page_bytes_per_shard=fp_page_bytes,
+                                    host_cache_pages=host_cache_pages)
+        if host_cache_pages > 0:
+            self.alloc.spill_hook = self._spill_page
         self.tables = [BlockTable(self.alloc, self.max_blocks)
                        for _ in range(max_slots)]
         self.scheduler = FCFSScheduler(preemption_policy=preemption_policy,
@@ -231,6 +276,10 @@ class PagedServingEngine:
         # per-slot digests of the full pages written (or attached) so far:
         # the prefix cache's registration cursor
         self.slot_chain: List[List[bytes]] = [[] for _ in range(max_slots)]
+        # per-slot n-gram drafters (speculate=True): built at the
+        # prefill-to-decode transition, extended with accepted tokens only,
+        # dropped with the slot's pages
+        self.slot_drafter: List[Optional[NGramDrafter]] = [None] * max_slots
         self.finished: Dict[int, PagedRequest] = {}
         self._next_id = 0
         self._null_row = np.zeros((self.max_blocks,), np.int32)
@@ -284,6 +333,9 @@ class PagedServingEngine:
         for req in self.scheduler.waiting:
             if req.req_id == req_id:
                 self.scheduler.waiting.remove(req)
+                ent = self._swap_handles.pop(req_id, None)
+                if ent is not None:
+                    self.alloc.swap_discard(ent[0])
                 req.done = req.cancelled = True
                 self.finished[req_id] = req
                 self.scheduler.on_cancel(req_id)
@@ -314,9 +366,9 @@ class PagedServingEngine:
         return list(self.scheduler.waiting)
 
     def metrics(self) -> Dict[str, object]:
-        """Point-in-time engine report with the JAX engine's fields;
-        sections of options not ported yet report their disabled shape."""
+        """Point-in-time engine report with the JAX engine's fields."""
         hit, seen = self.prefix_hit_tokens, self.prefix_lookup_tokens
+        drafted, accepted = self.spec_drafted_total, self.spec_accepted_total
         return {"scheduler": self.scheduler.summary(),
                 "blocks": self.alloc.utilization(),
                 "queue_depth": len(self.scheduler.waiting),
@@ -325,8 +377,8 @@ class PagedServingEngine:
                 "tick": "unified" if self.unified else "legacy",
                 "token_budget": self.token_budget,
                 "kv_dtype": self.kv_dtype,
-                "preempt": "recompute",
-                "swapped_requests_waiting": 0,
+                "preempt": self.preempt,
+                "swapped_requests_waiting": len(self._swap_handles),
                 "prefix_cache": {
                     "enabled": self.prefix_cache,
                     "hit_tokens": hit,
@@ -337,8 +389,9 @@ class PagedServingEngine:
                     "cow_copies": self.alloc.cow_copies,
                     "cached_pages": self.alloc.num_cached},
                 "speculative": {
-                    "enabled": False, "draft_k": 0, "drafted_tokens": 0,
-                    "accepted_tokens": 0, "accept_rate": 0.0},
+                    "enabled": self.speculate, "draft_k": self.draft_k,
+                    "drafted_tokens": drafted, "accepted_tokens": accepted,
+                    "accept_rate": accepted / drafted if drafted else 0.0},
                 "dispatches": self.dispatches,
                 "attention_backend": ("cuda" if self.device.type == "cuda"
                                       else "reference"),
@@ -356,6 +409,7 @@ class PagedServingEngine:
         self.slot_seq[slot] = None
         self.slot_filled[slot] = 0
         self.slot_chain[slot] = []
+        self.slot_drafter[slot] = None
 
     def _finish(self, slot: int, *, oom: bool = False) -> None:
         req = self.slot_req[slot]
@@ -381,7 +435,98 @@ class PagedServingEngine:
 
     def _preempt(self, slot: int) -> None:
         self.scheduler.on_preempt(self.slot_req[slot].req_id)
+        if self.preempt == "swap":
+            self._swap_out_slot(slot)
         self._vacate(slot)
+
+    # ------------------------------------------------------------------
+    # host swap tier (DESIGN.md §13)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _pages_to_host(self, blocks: List[int]) -> Dict[str, torch.Tensor]:
+        """Copy the given pages of every pool (every layer) to the host,
+        one gather and one blocking copy a pool.  Payloads stay torch
+        tensors: numpy has no bf16."""
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        return {name: pool[:, idx].cpu() for name, pool in self.cache.items()}
+
+    @torch.no_grad()
+    def _pages_from_host(self, blocks: List[int],
+                         payload: Dict[str, torch.Tensor]) -> None:
+        """Copy a host payload back into the given (freshly allocated)
+        pages of every pool, in place; exactly those pages are written."""
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        for name, pool in self.cache.items():
+            pool[:, idx] = payload[name].to(self.device)
+
+    def _written_pages(self, slot: int) -> int:
+        """Pages of ``slot`` holding written K/V rows (the partial tail
+        page counts; allocated-but-unwritten pages past it do not)."""
+        return -(-int(self.slot_filled[slot]) // self.block_size)
+
+    def _swap_out_slot(self, slot: int) -> None:
+        """Park the slot's written pages on the host before ``_vacate``
+        decrefs them; re-admission restores the bytes instead of
+        recomputing (``preempt="swap"``)."""
+        n = self._written_pages(slot)
+        if n == 0:
+            return
+        req = self.slot_req[slot]
+        payload = self._pages_to_host(self.tables[slot].blocks[:n])
+        handle = self.alloc.swap_out(n, payload)
+        self._swap_handles[req.req_id] = (
+            handle, self.slot_phase[slot], int(self.slot_filled[slot]),
+            list(self.slot_chain[slot]))
+        self._tick_swap[1] += n
+        if self.telemetry.enabled:
+            self.telemetry.span(req.req_id, "swap_out",
+                                self.telemetry.clock(), pages=n)
+
+    def _swap_resume(self, slot: int, req: PagedRequest) -> bool:
+        """Restore a swapped-out request into ``slot``: allocate its pages
+        (admission never preempts), copy the host payload back and resume
+        where it was vacated.  Returns False, leaving the handle parked,
+        when the pool cannot provide the pages yet or the tick's swap
+        budget is spent."""
+        handle, phase, filled, chain = self._swap_handles[req.req_id]
+        n = self.alloc.swap_pages(handle)
+        cap = self.swap_pages_per_tick
+        if cap is not None and self._tick_swap[0] > 0 \
+                and self._tick_swap[0] + n > cap:
+            return False     # budget spent; a tick's first resume proceeds
+        blocks: List[int] = []
+        for _ in range(n):
+            blk = self.alloc.allocate()
+            if blk is None:
+                if blocks:
+                    self.alloc.free(blocks)
+                return False
+            blocks.append(blk)
+        n_pages, payload = self.alloc.swap_in(handle)
+        del self._swap_handles[req.req_id]
+        self._pages_from_host(blocks, payload)
+        tab = self.tables[slot]
+        tab.blocks = blocks
+        tab.shared = 0           # restored pages are private copies
+        self.slot_req[slot] = req
+        self.slot_phase[slot] = phase
+        self.slot_seq[slot] = req.prefill_tokens()
+        self.slot_filled[slot] = filled
+        self.slot_chain[slot] = chain if self.prefix_cache else []
+        if phase == DECODE and self.speculate:
+            self._make_drafter(slot)
+        self._tick_swap[0] += n_pages
+        if self.telemetry.enabled:
+            self.telemetry.span(req.req_id, "swap_in",
+                                self.telemetry.clock(), pages=n_pages)
+        return True
+
+    def _spill_page(self, blk: int, digest: bytes) -> None:
+        """Allocator spill hook: a zero-ref cached page is about to be
+        evicted for reuse; keep its bytes in the digest-keyed host cache
+        so that a later prefix match can restore them."""
+        self.alloc.host_put(digest, self._pages_to_host([blk]))
+        self._tick_swap[1] += 1
 
     def _choose_victim_for(self, slot: int) -> Optional[int]:
         """Pick a preemption victim to relieve pool pressure on ``slot``
@@ -411,6 +556,15 @@ class PagedServingEngine:
             req = self.scheduler.next_request()
             if req is None:
                 return
+            if req.req_id in self._swap_handles:
+                # a swapped-out request copies its pages back instead of
+                # recomputing; when it cannot yet (pool dry, swap budget
+                # spent) it keeps the head of the line and admission stops
+                if self._swap_resume(slot, req):
+                    self.scheduler.on_admit(req.req_id)
+                    continue
+                self.scheduler.requeue_front(req)
+                return
             self.slot_req[slot] = req
             self.slot_phase[slot] = PREFILL
             seq = req.prefill_tokens()
@@ -429,13 +583,63 @@ class PagedServingEngine:
                 self.prefix_lookup_tokens += int(seq.size)
             self.scheduler.on_admit(req.req_id)
 
-    def _accept(self, slot: int, tok: int, emitted: Dict[int, int]) -> None:
-        """Record one decode row's greedy token."""
+    # ------------------------------------------------------------------
+    # speculative decoding (DESIGN.md §11)
+    # ------------------------------------------------------------------
+    def _make_drafter(self, slot: int) -> None:
+        """(Re)build the slot's n-gram index over the prompt and every
+        accepted token: at the prefill-to-decode transition, and on a swap
+        resume (the drafter is dropped with the slot)."""
         req = self.slot_req[slot]
-        self.slot_filled[slot] += 1
-        req.generated.append(tok)
-        self.scheduler.on_token(req.req_id)
-        emitted[req.req_id] = tok
+        dr = NGramDrafter()
+        dr.reset(np.concatenate(
+            [req.prompt, np.asarray(req.generated, np.int32)]))
+        self.slot_drafter[slot] = dr
+
+    def _propose(self, slot: int) -> List[int]:
+        """The slot's draft for this tick: up to ``draft_k`` tokens from its
+        n-gram index, capped so that the bonus token still has output room
+        (``max_new_tokens``) and the chain fits the block table."""
+        dr = self.slot_drafter[slot]
+        if dr is None:
+            return []
+        req = self.slot_req[slot]
+        k = min(self.draft_k,
+                req.max_new_tokens - len(req.generated) - 1,
+                self.capacity_tokens - int(self.slot_filled[slot]) - 1)
+        if k <= 0:
+            return []
+        return dr.draft(k)
+
+    def _accept(self, slot: int, draft: List[int], ids: np.ndarray,
+                emitted: Dict[int, object]) -> None:
+        """Exact accept and rollback for one decode chain.  ``ids[j]`` is
+        the greedy id after chain position ``j`` (the chain: the last
+        generated token, then the draft).  The longest draft prefix the
+        model reproduces is accepted, plus the bonus token ``ids[m]``:
+        what one-token greedy decoding gives, token for token.
+        ``slot_filled`` advances over accepted positions only; the
+        rejected rows' K/V is overwritten before any later row attends to
+        it.  With ``draft == []`` this is a plain decode row."""
+        req = self.slot_req[slot]
+        m = 0
+        while m < len(draft) and int(ids[m]) == draft[m]:
+            m += 1
+        toks = list(draft[:m]) + [int(ids[m])]
+        self.slot_filled[slot] += m + 1
+        for t in toks:
+            req.generated.append(t)
+            self.scheduler.on_token(req.req_id)
+        if self.speculate:
+            if self.slot_drafter[slot] is not None:
+                self.slot_drafter[slot].extend(toks)
+            self._tick_spec[1] += m
+            self.spec_accepted_total += m
+            if draft and self.telemetry.enabled:
+                self.telemetry.spec_accept_len.record(m)
+            emitted[req.req_id] = toks
+        else:
+            emitted[req.req_id] = toks[0]
         self._register_pages(slot)
         if len(req.generated) >= req.max_new_tokens:
             self._finish(slot)
@@ -458,6 +662,8 @@ class PagedServingEngine:
         for k in range(int(seq.size) // bs):
             digest = page_digest(parent, seq[k * bs:(k + 1) * bs])
             blk = self.alloc.lookup(digest)
+            if blk is None and self.alloc.host_cache_pages > 0:
+                blk = self._restore_host_page(digest, avoid=blocks)
             if blk is None:
                 break
             chain.append(digest)
@@ -474,6 +680,32 @@ class PagedServingEngine:
                 blocks.pop()
                 matched = len(blocks) * bs
         return matched, chain, blocks
+
+    def _restore_host_page(self, digest: bytes,
+                           avoid: Collection[int] = ()) -> Optional[int]:
+        """A prefix hit in the host tier: copy the spilled page back into a
+        fresh device page, re-register its digest and park it zero-ref in
+        the device cache, so ``fork_from_prefix`` attaches it like any
+        other cached page.  None when the host tier misses too or the
+        pool is dry.
+
+        ``avoid``: the pages the prefix walk matched so far.  They are not
+        attached yet, so a zero-ref one is still evictable; the fresh page
+        must not be taken from them, or the table would hold one page
+        twice.  (The JAX engine's ``_restore_host_page`` takes the LRU
+        page whatever it is, and then serves wrong tokens.)"""
+        payload = self.alloc.host_lookup(digest)
+        if payload is None:
+            return None
+        blk = self.alloc.allocate(avoid=avoid)
+        if blk is None:
+            self.alloc.host_put(digest, payload)     # keep the bytes
+            return None
+        self._pages_from_host([blk], payload)
+        self.alloc.register(blk, digest)
+        self.alloc.decref([blk])     # zero-ref cached, attachable
+        self._tick_swap[0] += 1
+        return blk
 
     def _tokens_range(self, slot: int, a: int, b: int) -> np.ndarray:
         """Tokens written at positions [a, b) of ``slot``: prefill tokens
@@ -541,17 +773,24 @@ class PagedServingEngine:
         for pool in self.cache.values():
             paged_ops.copy_page(pool, src, dst)
 
-    def _grow_decode(self, slot: int) -> None:
-        """Room for one decode token: grow the table (may preempt) and
-        make the slot's next position writable; finish the request (OOM)
-        when neither the table nor the pool has room."""
+    def _grow_decode(self, slot: int, draft: int = 0) -> int:
+        """Room for a decode chain of ``1 + draft`` tokens: grow the table
+        (may preempt) and make positions ``[filled, filled + 1 + draft)``
+        writable.  When the chain does not fit, fall back to one token;
+        finish the request (OOM) when neither the table nor the pool has
+        room for that.  Returns the draft length that fits."""
         filled = int(self.slot_filled[slot])
+        if draft and self._ensure_blocks(slot, filled + 1 + draft) \
+                and self._cow_writable(slot, filled, filled + 1 + draft,
+                                       may_preempt=True):
+            return draft
         if filled >= self.capacity_tokens:
             self._finish(slot, oom=True)     # out of table bounds
         elif not self._ensure_blocks(slot, filled + 1) \
                 or not self._cow_writable(slot, filled, filled + 1,
                                           may_preempt=True):
             self._finish(slot, oom=True)     # pool dry, no victims
+        return 0
 
     # ------------------------------------------------------------------
     # the unified tick
@@ -597,7 +836,10 @@ class PagedServingEngine:
 
         Planning: prefill page growth first (vacate, never preempt, when
         the pool is dry), then decode growth, which may preempt per
-        policy."""
+        policy.  With ``speculate=True`` each decoding slot may pack its
+        draft chain: the scheduler grants draft tokens from what the
+        budget leaves after the prefill chunks, and the chain rides as a
+        segment scored at every position through ``verify_idx``."""
         prefill_req = []
         for slot, req in enumerate(self.slot_req):
             if req is None or self.slot_phase[slot] != PREFILL:
@@ -606,8 +848,24 @@ class PagedServingEngine:
             prefill_req.append((slot, req.req_id, need))
         decode_slots = [s for s, r in enumerate(self.slot_req)
                         if r is not None and self.slot_phase[s] == DECODE]
-        grants = self.scheduler.plan_tick(self.token_budget, decode_slots,
-                                          prefill_req, self.prefill_chunk)
+        drafts: Dict[int, List[int]] = {}
+        if self.speculate and decode_slots:
+            want = []
+            for slot in decode_slots:
+                prop = self._propose(slot)
+                if prop:
+                    drafts[slot] = prop
+                    want.append((slot, self.slot_req[slot].req_id,
+                                 len(prop)))
+            grants, draft_grants = self.scheduler.plan_tick(
+                self.token_budget, decode_slots, prefill_req,
+                self.prefill_chunk, draft=want)
+            drafts = {s: d[:draft_grants.get(s, 0)]
+                      for s, d in drafts.items() if draft_grants.get(s, 0)}
+        else:
+            grants = self.scheduler.plan_tick(
+                self.token_budget, decode_slots, prefill_req,
+                self.prefill_chunk)
         plan = []  # (slot, start, end)
         for slot, _rid, _need in prefill_req:
             n = grants.get(slot, 0)
@@ -626,26 +884,35 @@ class PagedServingEngine:
         for slot in decode_slots:
             if self.slot_req[slot] is None:
                 continue                         # preempted by an earlier slot
-            self._grow_decode(slot)
+            if not self._grow_decode(slot, len(drafts.get(slot, ()))):
+                drafts.pop(slot, None)           # the chain did not fit
         plan = [(s, a, b) for s, a, b in plan
                 if self.slot_req[s] is not None
                 and self.slot_phase[s] == PREFILL]
         decoding = [s for s in decode_slots
                     if self.slot_req[s] is not None
                     and self.slot_phase[s] == DECODE]
+        drafts = {s: d for s, d in drafts.items() if s in set(decoding)}
         if not plan and not decoding:
             return None
         # -- pack the flat ragged batch ----------------------------------
         # Tb always leaves at least one padded tail row for the dead
         # row_map / verify entries (position -1, null table); buckets are
         # multiples of 4 capped at the pack's true maximum
-        T = len(decoding) + sum(end - start for _, start, end in plan)
-        Tb = min(-(-(T + 1) // 4) * 4,
-                 self.max_slots * self.prefill_chunk + 1)
+        drafted = sum(len(d) for d in drafts.values())
+        seg = [1 + len(drafts.get(s, ())) for s in decoding]
+        T = sum(seg) + sum(end - start for _, start, end in plan)
+        row_cap = max(self.prefill_chunk,
+                      1 + self.draft_k if self.speculate else 1)
+        Tb = min(-(-(T + 1) // 4) * 4, self.max_slots * row_cap + 1)
         R, MB = self.max_slots, self.max_blocks
-        chunk_max = max([end - start for _, start, end in plan] + [1])
+        chunk_max = max([end - start for _, start, end in plan] + seg + [1])
         chm = min(1 << (chunk_max - 1).bit_length(), Tb)
+        # verify width: the positions a request needs logits at — its last
+        # packed token, or its whole draft chain; bucketed like chm
         vw = 1
+        if drafts:
+            vw = min(1 << (max(seg) - 1).bit_length(), self.draft_k + 1)
         # ONE packed int32 buffer carries the whole tick —
         #   [tokens | positions | verify_idx | row_map | req_tables]
         # — one host->device copy per tick.  Block tables ride per
@@ -662,12 +929,19 @@ class PagedServingEngine:
         req_tables = buf[2 * Tb + R * vw + R * chm:].reshape(R, MB)
         r = 0
         for slot in decoding:
-            tokens[r] = self.slot_req[slot].generated[-1]
-            positions[r] = int(self.slot_filled[slot])
+            # the decode segment is the chain: the last generated token,
+            # then the draft, at consecutive positions
+            chain = ([self.slot_req[slot].generated[-1]]
+                     + drafts.get(slot, []))
+            n = len(chain)
+            filled = int(self.slot_filled[slot])
+            tokens[r:r + n] = chain
+            positions[r:r + n] = np.arange(filled, filled + n,
+                                           dtype=np.int32)
             req_tables[slot] = self.tables[slot].as_row()
-            verify_idx[slot, 0] = r
-            row_map[slot, 0] = r
-            r += 1
+            verify_idx[slot, :n] = np.arange(r, r + n, dtype=np.int32)
+            row_map[slot, :n] = np.arange(r, r + n, dtype=np.int32)
+            r += n
         for slot, start, end in plan:
             n = end - start
             tokens[r:r + n] = self.slot_seq[slot][start:end]
@@ -676,7 +950,9 @@ class PagedServingEngine:
             verify_idx[slot, 0] = r + n - 1
             row_map[slot, :n] = np.arange(r, r + n, dtype=np.int32)
             r += n
-        self._tick_pack = [T, Tb, T - len(decoding), len(decoding)]
+        self._tick_pack = [T, Tb, T - sum(seg), sum(seg)]
+        self._tick_spec[0] += drafted
+        self.spec_drafted_total += drafted
         fence = self.telemetry.enabled
         f0 = 0.0
         if fence:
@@ -688,33 +964,34 @@ class PagedServingEngine:
             self._live_bound(positions), chm, vw)
         self.dispatches += 1
         return {"next_tokens": next_tokens, "decoding": decoding,
-                "plan": plan, "fence": fence, "f0": f0}
+                "drafts": drafts, "plan": plan, "fence": fence, "f0": f0}
 
     def _unified_collect(self, ctx: Optional[Dict[str, object]]
-                         ) -> Dict[int, int]:
+                         ) -> Dict[int, object]:
         """Copy the tick's ids to the host (the tick's only device sync)
-        and unpack: accept decode tokens, advance prefill cursors, emit
+        and unpack: accept decode chains, advance prefill cursors, emit
         first tokens, finish slots."""
-        emitted: Dict[int, int] = {}
+        emitted: Dict[int, object] = {}
         if ctx is None:
             return emitted
-        next_tokens = ctx["next_tokens"].cpu().numpy()   # (max_slots, 1)
+        next_tokens = ctx["next_tokens"].cpu().numpy()   # (max_slots, vw)
         if ctx["fence"]:
             self._tick_device_s += self.telemetry.clock() - ctx["f0"]
         for slot in ctx["decoding"]:
-            self._accept(slot, int(next_tokens[slot, 0]), emitted)
+            self._accept(slot, ctx["drafts"].get(slot, []),
+                         next_tokens[slot], emitted)
         for slot, start, end in ctx["plan"]:
             self._advance_prefill(slot, end, int(next_tokens[slot, 0]),
                                   emitted)
         return emitted
 
     def _advance_prefill(self, slot: int, end: int, nxt: int,
-                         emitted: Dict[int, int]) -> bool:
+                         emitted: Dict[int, object]) -> bool:
         """A prefill chunk of ``slot`` up to position ``end`` has run;
         ``nxt`` is the greedy id at its last token.  Registers the pages it
-        filled; on the prompt's last chunk moves the slot to decode and
-        emits the first generated token.  Returns True when the slot
-        became decodable."""
+        filled; on the prompt's last chunk moves the slot to decode, emits
+        the first generated token and builds the slot's drafter.  Returns
+        True when the slot became decodable."""
         req = self.slot_req[slot]
         self.slot_filled[slot] = end
         self._register_pages(slot)
@@ -724,10 +1001,12 @@ class PagedServingEngine:
         if not req.generated:
             # first generated token comes from the prompt's last logits
             req.generated.append(nxt)
-            emitted[req.req_id] = nxt
+            emitted[req.req_id] = [nxt] if self.speculate else nxt
             self.scheduler.on_token(req.req_id)
         if len(req.generated) >= req.max_new_tokens:
             self._finish(slot)
+        elif self.speculate:
+            self._make_drafter(slot)
         return True
 
     # ------------------------------------------------------------------
@@ -763,7 +1042,7 @@ class PagedServingEngine:
         Returns ({req_id: first_token} for prompts completed this tick,
         the set of slots that just became decodable: they sit out this
         tick's decode, so a step emits at most one token per request)."""
-        emitted: Dict[int, int] = {}
+        emitted: Dict[int, object] = {}
         ready: set = set()
         C = self.prefill_chunk
         plan = []  # (slot, start, end)
@@ -801,34 +1080,54 @@ class PagedServingEngine:
                 ready.add(slot)
         return emitted, ready
 
-    def _decode_tick(self, skip=frozenset()) -> Dict[int, int]:
+    def _decode_tick(self, skip=frozenset()) -> Dict[int, object]:
         """One decode pass: one token for every decoding slot (``skip``:
-        slots whose prefill completed this very tick)."""
-        emitted: Dict[int, int] = {}
+        slots whose prefill completed this very tick).  With
+        ``speculate=True`` each slot also packs its draft chain (this tick
+        has no token budget, so drafts are never cut) and the pass is
+        ``W`` rows a slot, the longest chain bucketed."""
+        emitted: Dict[int, object] = {}
+        drafts: Dict[int, List[int]] = {}
         for slot, req in enumerate(self.slot_req):
             if req is None or self.slot_phase[slot] != DECODE \
                     or slot in skip:
                 continue
-            self._grow_decode(slot)
+            prop = self._propose(slot) if self.speculate else []
+            if self._grow_decode(slot, len(prop)):
+                drafts[slot] = prop
         decoding = [s for s, r in enumerate(self.slot_req)
                     if r is not None and self.slot_phase[s] == DECODE
                     and s not in skip]
         if not decoding:
             return emitted
-        tp = self._tick_pack
-        tp[0] += len(decoding)
-        tp[1] += self.max_slots
-        tp[3] += len(decoding)
-        tokens = np.zeros((self.max_slots, 1), np.int32)
-        positions = np.full((self.max_slots, 1), -1, np.int32)
+        drafts = {s: d for s, d in drafts.items() if s in set(decoding)}
+        drafted = sum(len(d) for d in drafts.values())
+        W = 1
+        if self.speculate:
+            wmax = max(1 + len(drafts.get(s, ())) for s in decoding)
+            W = min(1 << (wmax - 1).bit_length(), self.draft_k + 1)
+        tp = self._tick_pack   # every slot is padded to the chain width
+        tp[0] += len(decoding) + drafted
+        tp[1] += self.max_slots * W
+        tp[3] += len(decoding) + drafted
+        self._tick_spec[0] += drafted
+        self.spec_drafted_total += drafted
+        tokens = np.zeros((self.max_slots, W), np.int32)
+        positions = np.full((self.max_slots, W), -1, np.int32)
         tables = np.tile(self._null_row, (self.max_slots, 1))
         for slot in decoding:
-            tokens[slot, 0] = self.slot_req[slot].generated[-1]
-            positions[slot, 0] = int(self.slot_filled[slot])
+            chain = ([self.slot_req[slot].generated[-1]]
+                     + drafts.get(slot, []))
+            n = len(chain)
+            filled = int(self.slot_filled[slot])
+            tokens[slot, :n] = chain
+            positions[slot, :n] = np.arange(filled, filled + n,
+                                            dtype=np.int32)
             tables[slot] = self.tables[slot].as_row()
         next_tokens = self._run(tokens, positions, tables)
         for slot in decoding:
-            self._accept(slot, int(next_tokens[slot, 0]), emitted)
+            self._accept(slot, drafts.get(slot, []), next_tokens[slot],
+                         emitted)
         return emitted
 
     # ------------------------------------------------------------------
@@ -840,6 +1139,8 @@ class PagedServingEngine:
             raise RuntimeError("step_begin() called with a tick already "
                                "in flight; call step_end() first")
         tel = self.telemetry
+        self._tick_spec = [0, 0]
+        self._tick_swap = [0, 0]
         pend: Dict[str, object] = {"kind": "unified" if self.unified
                                    else "legacy"}
         if tel.enabled:
@@ -863,9 +1164,10 @@ class PagedServingEngine:
         return pend
 
     def step_end(self, pending: Optional[Dict[str, object]] = None
-                 ) -> Dict[int, int]:
+                 ) -> Dict[int, object]:
         """Sync + unpack the tick launched by :meth:`step_begin` and record
-        its telemetry event.  Returns the tick's {req_id: token}."""
+        its telemetry event.  Returns the tick's emitted tokens (see
+        :meth:`step`)."""
         if pending is None:
             pending = self._pending
         if pending is None or pending is not self._pending:
@@ -881,6 +1183,8 @@ class PagedServingEngine:
             pre = pending["pre"]
             in_use, cached, free = self.alloc.snapshot()
             pk = self._tick_pack
+            n_emitted = (sum(len(v) for v in emitted.values())
+                         if self.speculate else len(emitted))
             tel.record_tick(
                 t=pending["t0"], kind=pending["kind"],
                 wall_s=tel.clock() - pending["t0"],
@@ -888,8 +1192,8 @@ class PagedServingEngine:
                 device_t=self._tick_device_t0,
                 packed_tokens=pk[0], padded_tokens=pk[1],
                 prefill_tokens=pk[2], decode_tokens=pk[3],
-                emitted=len(emitted),
-                live_slots=self.active,
+                drafted=self._tick_spec[0], accepted=self._tick_spec[1],
+                emitted=n_emitted, live_slots=self.active,
                 waiting=len(self.scheduler.waiting),
                 pool_free=free, pool_cached=cached, pool_in_use=in_use,
                 prefix_hit_tokens=self.prefix_hit_tokens - pre[2],
@@ -897,14 +1201,18 @@ class PagedServingEngine:
                 cow_copies=self.alloc.cow_copies - pre[1],
                 dispatches=self.dispatches - pre[3],
                 finished=len(self.finished) - pre[4],
+                swap_in=self._tick_swap[0], swap_out=self._tick_swap[1],
                 quant=self.kv_dtype == "int8")
         return emitted
 
-    def step(self) -> Dict[int, int]:
+    def step(self) -> Dict[int, object]:
         """Admit, then advance every in-flight request by one tick: one
         token per decoding slot and one chunk per prefilling slot, in ONE
-        pass (two on the ``unified=False`` tick).  Returns {req_id: new_token}, including first tokens from
-        completed prefills.  Exactly ``step_end(step_begin())``."""
+        pass (two on the ``unified=False`` tick).  Returns {req_id:
+        new_token}, including first tokens from completed prefills; with
+        ``speculate=True`` a request may advance by several tokens (its
+        accepted draft and the bonus), and the values are token lists.
+        Exactly ``step_end(step_begin())``."""
         return self.step_end(self.step_begin())
 
     def dump_trace(self, path, fmt: Optional[str] = None) -> str:

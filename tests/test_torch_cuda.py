@@ -1026,3 +1026,184 @@ def test_cuda_wkv6_copies_misaligned_rows(cuda_device):
     want = kernel.wkv6(r.clone(), k, v, w, u)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --- verify chains, swap and the host tier (speculative decoding) ------------
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype,D,G,tol", [
+    (torch.float32, 16, 2, 1e-4), (torch.bfloat16, 256, 8, 3e-2)],
+    ids=["fp32_D16", "bf16_D256"])
+@pytest.mark.parametrize("S", [2, 4, 5])
+def test_cuda_verify_chain_update_matches_plain(cuda_device, S, dtype, D, G,
+                                                tol, quant):
+    """The fused update at the verify-chain widths of speculative decoding
+    (``S`` = 2, 4, 5 rows a request: the last token and its draft), chains
+    of every length up to ``S`` at ragged depths, one crossing a page and
+    one idle row, over fp and int8 pools: live rows within ``tol`` of the
+    plain version, the pools (and scale pools) bit-equal.  Two
+    known-wrong readings land outside ``tol``: the scatter skipped, and
+    every chain row seeing the whole chain (no causal mask inside it)."""
+    ns = [S, max(1, S - 1), 1, 0]
+    c = make_case(30 + S, S=S, filled=[13, 6, 40, 0], ns=ns, Hkv=1, G=G,
+                  BS=4, MB=12, D=D)
+    t = _on(cuda_device, c, dtype)
+    kw = {}
+    kp, vp = t["kp"], t["vp"]
+    if quant:
+        kp, vp, ks, vs = _int8_pools(cuda_device, c, 40 + S)
+        kw = dict(k_scale=ks, v_scale=vs)
+    res = {}
+    for name, fn in (("plain", pa_ref.unified_attention_update),
+                     ("kernel", pa_kernel.paged_attention_update)):
+        res[name] = fn(t["q"], t["kn"], t["vn"], kp.clone(), vp.clone(),
+                       t["tables"], t["pos"], window=FULL, softcap=0.0,
+                       max_live_blocks=c["live"],
+                       **{k: v.clone() for k, v in kw.items()})
+    torch.cuda.synchronize()
+    live = torch.from_numpy(c["pos"] >= 0).to(cuda_device)
+    want = res["plain"][0].float()
+    assert (res["kernel"][0].float() - want)[live].abs().max().item() <= tol
+    assert torch.isfinite(res["kernel"][0].float()).all()
+    for i in range(1, len(res["plain"])):
+        assert torch.equal(res["kernel"][i][1:], res["plain"][i][1:])
+    scales = dict(zip(("k_scale", "v_scale"), res["plain"][3:]))
+    last = t["pos"].max(dim=1, keepdim=True).values.expand_as(t["pos"])
+    unmasked = torch.where(t["pos"] >= 0, last, t["pos"])
+    for wrong in (
+            pa_ref.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                   window=FULL, softcap=0.0,
+                                   max_live_blocks=c["live"], **kw),
+            pa_ref.paged_attention(t["q"], *res["plain"][1:3], t["tables"],
+                                   unmasked, window=FULL, softcap=0.0,
+                                   max_live_blocks=c["live"], **scales)):
+        assert (wrong.float() - want)[live].abs().max().item() > tol
+
+
+def _engine_on(dev, kv_dtype=None, **kw):
+    from repro_torch.config import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving import PagedServingEngine
+    cfg = reduced(get_config("granite-3-2b"))
+    params = _to(M.init_params(cfg, seed=0, device="cpu"), dev)
+    return PagedServingEngine(cfg, params, max_slots=2, block_size=4,
+                              max_blocks_per_seq=8, num_blocks=20,
+                              kv_dtype=kv_dtype, device=dev, **kw)
+
+
+def _fill_random(cache, seed):
+    """Random bytes in every pool of an engine's cache, drawn on the CPU."""
+    for name, pool in cache.items():
+        g = torch.Generator().manual_seed(seed + len(name))
+        if pool.dtype == torch.int8:
+            x = torch.randint(-127, 128, pool.shape, generator=g,
+                              dtype=torch.int8)
+        else:
+            x = torch.randn(pool.shape, generator=g).to(pool.dtype)
+        pool.copy_(x.to(pool.device))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["fp", "int8"])
+def test_cuda_swap_round_trip_bit_equal(cuda_device, kv_dtype):
+    """A swap payload holds every pool of the cache on the host (int8: the
+    K/V pools and both scale pools), and copying it back into other pages
+    of the card's pools is bit-equal to the pages it came from; no other
+    page moves."""
+    eng = _engine_on(cuda_device, kv_dtype, preempt="swap")
+    _fill_random(eng.cache, 60)
+    src, dst = [3, 7, 5, 19], [2, 11, 9, 1]
+    before = {n: p.clone() for n, p in eng.cache.items()}
+    payload = eng._pages_to_host(src)
+    assert set(payload) == set(eng.cache) == (
+        {"k", "v", "k_scale", "v_scale"} if kv_dtype else {"k", "v"})
+    assert all(p.device.type == "cpu" for p in payload.values())
+    eng._pages_from_host(dst, payload)
+    torch.cuda.synchronize()
+    keep = [b for b in range(eng.num_blocks) if b not in dst]
+    for name, pool in eng.cache.items():
+        assert torch.equal(payload[name], before[name][:, src].cpu())
+        assert torch.equal(pool[:, dst], before[name][:, src]), name
+        assert torch.equal(pool[:, keep], before[name][:, keep]), name
+
+
+def test_cuda_host_restore_bit_equal(cuda_device):
+    """The host tier on the card: evicting a cached page spills it, and
+    after the device page is reused and clobbered a prefix match restores
+    it into a fresh page bit-equal to the page that spilled, in every pool
+    of int8 pages."""
+    from repro_torch.serving.blocks import page_digest
+    eng = _engine_on(cuda_device, "int8", prefix_cache=True,
+                     host_cache_pages=4)
+    prompt = np.arange(3, 12, dtype=np.int32)
+    eng.submit(prompt, 2)
+    eng.run_to_completion()
+    digest = page_digest(b"", prompt[:4])
+    blk = eng.alloc.lookup(digest)
+    page = {n: p[:, blk].clone() for n, p in eng.cache.items()}
+    taken = []
+    while eng.alloc.lookup(digest) is not None:
+        taken.append(eng.alloc.allocate())
+    for pool in eng.cache.values():
+        pool[:, taken] = 0
+    eng.alloc.decref(taken)
+    new = eng._restore_host_page(digest)
+    torch.cuda.synchronize()
+    assert new is not None and eng.alloc.lookup(digest) == new
+    for name, pool in eng.cache.items():
+        assert torch.equal(pool[:, new], page[name]), name
+
+
+@pytest.mark.parametrize("kw", [
+    dict(speculate=True), dict(speculate=True, unified=False),
+    dict(speculate=True, kv_dtype="int8", prefix_cache=True),
+    dict(preempt="swap"), dict(preempt="swap", kv_dtype="int8",
+                               speculate=True),
+    dict(prefix_cache=True, host_cache_pages=6)],
+    ids=["speculate", "speculate_legacy", "speculate_int8_cache", "swap",
+         "swap_int8_speculate", "host_cache"])
+def test_cuda_engine_spec_swap_token_exact(cuda_device, kw):
+    """Speculation, swap preemption and the host tier on the card (reduced
+    granite-3-2b, fp32, output projections x8): the streams, drafted and
+    accepted totals and swap counters equal the same engine's on the CPU,
+    in a pool small enough to preempt and to evict cached pages, the fused
+    update launching once per layer per pass."""
+    from repro_torch.config import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving import PagedServingEngine
+    cfg = reduced(get_config("granite-3-2b"))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    for k in ("attn", "mlp"):
+        params["layers"][k]["wo"] *= 8.0
+    rng = np.random.default_rng(5)
+    pat = rng.integers(0, cfg.vocab, 3).astype(np.int32)
+    prompts = [np.tile(pat, 3), rng.integers(0, cfg.vocab, 9).astype(
+        np.int32), rng.integers(0, cfg.vocab, 11).astype(np.int32)]
+    waves = [prompts, [p.copy() for p in prompts[1:]]]
+    outs, reports = [], []
+    for dev in (torch.device("cpu"), cuda_device):
+        eng = PagedServingEngine(cfg, _to(params, dev), max_slots=3,
+                                 block_size=4, max_blocks_per_seq=8,
+                                 num_blocks=13, prefill_chunk=4, device=dev,
+                                 **kw)
+        before = pa_kernel.launches + pa_kernel.int8_launches
+        streams = []
+        for wave in waves:
+            ids = [eng.submit(p, 14) for p in wave]
+            res = eng.run_to_completion()
+            streams += [res[i] for i in ids]
+        launched = pa_kernel.launches + pa_kernel.int8_launches - before
+        outs.append(streams)
+        m = eng.metrics()
+        reports.append((m["speculative"], m["blocks"]["swapped_out_pages"],
+                        m["blocks"]["host_cache_hits"],
+                        m["scheduler"]["preemptions"]))
+    assert outs[0] == outs[1]
+    assert reports[0] == reports[1]
+    assert launched == cfg.n_layers * eng.dispatches
+    spec, swapped, host_hits, preemptions = reports[1]
+    if kw.get("speculate"):
+        assert spec["drafted_tokens"] > 0
+    if kw.get("preempt") == "swap":
+        assert preemptions > 0 and swapped > 0
+    if kw.get("host_cache_pages"):
+        assert host_hits > 0

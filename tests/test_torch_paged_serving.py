@@ -318,31 +318,45 @@ def test_paged_and_unified_step_logits_match_jax():
     dict(preempt="swap"), dict(host_cache_pages=4), dict(mesh=object()),
     dict(unified=False)])
 def test_later_slice_options_raise(setup, option):
-    """Options of later slices raise, naming their ROADMAP.md item.  Three
-    of the seven are ported now and are checked instead: with
-    ``prefix_cache=True`` (option0), ``kv_dtype="int8"`` (option2) or
-    ``unified=False`` (option6) the engine serves ragged prompts, two of
-    them re-served so the cache is hit, with exactly the tokens of the
-    port's ``generate``.  int8 pages are lossy, so for option2 that
-    equality holds on this fixture rather than by construction (the int8
-    tests compare int8 streams with the JAX int8 engine's)."""
+    """Options of later slices raise, naming their ROADMAP.md item: only
+    ``mesh=`` (option5) is left.  The six ported options are checked
+    instead: with ``prefix_cache=True`` (option0), ``speculate=True``
+    (option1), ``kv_dtype="int8"`` (option2), ``preempt="swap"`` (option3,
+    in a pool small enough to swap), ``host_cache_pages=4`` (option4, with
+    the prefix cache it spills from) or ``unified=False`` (option6) the
+    engine serves ragged prompts, two of them re-served so the cache is
+    hit, with exactly the tokens of the port's ``generate``.  int8 pages
+    are lossy, so for option2 that equality holds on this fixture rather
+    than by construction (the int8 tests compare int8 streams with the
+    JAX int8 engine's)."""
     cfg, params = setup
-    ported = {"prefix_cache", "kv_dtype", "unified"}
+    ported = {"prefix_cache", "speculate", "kv_dtype", "preempt",
+              "host_cache_pages", "unified"}
     if not ported & set(option):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _engine(cfg, params, **option)
         return
+    extra = {}
+    if "preempt" in option:
+        extra = dict(num_blocks=5)
+    if "host_cache_pages" in option:
+        extra = dict(prefix_cache=True)
     prompts = _prompts(0, cfg, (5, 8, 6, 1))
     prompts += [prompts[0].copy(), prompts[1].copy()]
     gens = [5, 3, 6, 4, 5, 3]
     eng = _engine(cfg, params, max_slots=2, block_size=4,
-                  max_blocks_per_seq=12, prefill_chunk=3, **option)
+                  max_blocks_per_seq=12, prefill_chunk=3, **option, **extra)
     ids = [eng.submit(p, g) for p, g in zip(prompts[:4], gens[:4])]
     results = eng.run_to_completion()
     ids += [eng.submit(p, g) for p, g in zip(prompts[4:], gens[4:])]
     results = eng.run_to_completion()
     for rid, p, g in zip(ids, prompts, gens):
         assert results[rid] == _ref(cfg, params, p, g), option
+    if "preempt" in option:
+        assert eng.alloc.utilization()["swapped_out_pages"] > 0
+        assert eng.metrics()["swapped_requests_waiting"] == 0
+    if "speculate" in option:
+        assert eng.metrics()["speculative"]["enabled"]
     m = eng.metrics()
     if "prefix_cache" in option:
         assert m["prefix_cache"]["hit_tokens"] > 0

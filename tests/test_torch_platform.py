@@ -299,12 +299,15 @@ def test_serve_on_cluster_matches_generate(platform):
 ])
 def test_serve_options_not_ported(platform, kw, item):
     """Serving options of later slices raise, naming their ROADMAP item,
-    and leave the cluster unlocked.  ``prefix_cache=True`` (kw2) and
-    ``kv_dtype="int8"`` (kw4) are ported now: they serve through the
-    verbs instead, a repeated prompt included, with exactly the tokens of
-    the port's ``generate`` (reduced granite-3-2b, fp32, on the CPU)."""
+    and leave the cluster unlocked: ``open_loop`` (kw0) and ``replicas=2``
+    (kw1) still do.  The name is kept, though the other five cases are
+    ported now: ``prefix_cache=True`` (kw2), ``speculate=True`` (kw3),
+    ``kv_dtype="int8"`` (kw4), ``preempt="swap"`` (kw5) and
+    ``host_cache_pages=8`` (kw6) serve through the verbs instead, a
+    repeated prompt included, with exactly the tokens of the port's
+    ``generate`` (reduced granite-3-2b, fp32, on the CPU)."""
     platform.create_instance("srv")
-    if "prefix_cache" not in kw and "kv_dtype" not in kw:
+    if "open_loop" in kw or "replicas" in kw:
         with pytest.raises(NotImplementedError, match=item):
             platform.serve_on_cluster("srv", None, None, [], **kw)
         assert not platform.clusters["srv"].in_use
@@ -329,8 +332,14 @@ def test_serve_options_not_ported(platform, kw, item):
     if "prefix_cache" in kw:
         assert m["prefix_cache"]["enabled"]
         assert m["prefix_cache"]["hit_tokens"] > 0
-    else:
+    if "kv_dtype" in kw:
         assert m["kv_dtype"] == "int8"
+    if "speculate" in kw:
+        assert m["speculative"]["enabled"]
+    if "preempt" in kw:
+        assert m["preempt"] == "swap"
+    if "host_cache_pages" in kw:
+        assert m["blocks"]["host_cache_capacity_pages"] == 8
     assert not platform.clusters["srv"].in_use
 
 
