@@ -80,6 +80,27 @@ Phases, each raising on failure:
      request's pages, the first re-served): host restores above 0,
      restored pages bit-equal to the spilled bytes, streams byte-equal to
      the cache off;
+  5c. gemma-2b at full width through the serving stack's other entry
+     points, each run with the launch counts set to 0 just before it:
+     (a) the legacy dense engine (``core.serving.ServingEngine``), 4 x
+     (prompt 32 + generate 32), prefill token by token, no paged kernel
+     launched, streams equal to ``generate`` or leaving it first at a
+     near-tie (``SPEC_TIE``; prefill token by token rounds otherwise than
+     one pass), tokens/s; (b) ``launch/serve --open-loop --mix chat
+     --arrivals poisson --rate 20 --requests 32 --seed 0`` (the CLI's
+     ``run`` on phase 5's weights) over the paged engine on the wall
+     clock: TTFT p50/p99, TPOT, goodput at a 0.5 s TTFT / 0.05 s TPOT
+     SLO, ``overlap_admitted``, one update launch per tick and layer,
+     streams held to the closed-loop engine's under the same near-tie
+     rule; (c) ``--mix agents --prefix-cache --host-cache-pages 16
+     --replicas 2`` under ``--routing affinity`` and ``rr`` (two replicas
+     on the one card, one weight set): placements,
+     ``affinity_hit_tokens`` (above 0 under affinity), one update launch
+     per replica tick and layer, streams held to one engine's; then the
+     same traffic with a replica failed at tick 10 (the router's injected
+     preemption calls ``fail_replica``): every request re-routed with
+     exactly its tokens; (d) ``--engine batch --temperature 0.7`` twice
+     from the same seed: the sampled streams equal, and not greedy's;
   6. device time per call (the median of CUDA events around each call,
      behind a queued sleep) of the kernel, its plain version and one
      PyTorch library call (``scaled_dot_product_attention`` over
@@ -1373,6 +1394,235 @@ def phase_full_width_spec_swap(torch, dev, full):
         raise AssertionError(f"{label}: streams differ from the cache off")
     varied(label, on)
     out[label]["host_restores"] = u["host_cache_hits"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the legacy engine, the open-loop front end, the router, sampling
+# ---------------------------------------------------------------------------
+
+def held_to(torch, dev, label, cfg, params, reqs, got, want, BS):
+    """Hold served streams ``got`` to the reference streams ``want`` of
+    the same requests ``reqs`` [(prompt, gen)]: each of ``gen`` tokens,
+    equal, or leaving the reference first where its top-2 margin (the
+    paged step, one token a step, over prompt + reference) is under
+    ``SPEC_TIE``.  Margins are computed only for streams that leave it.
+    Returns how many streams are identical."""
+    import numpy as np
+    exact = 0
+    for b, ((p, g), gs, ws) in enumerate(zip(reqs, got, want)):
+        if not len(gs) == len(ws) == g:
+            raise AssertionError(f"{label}: request {b} served {len(gs)} "
+                                 f"tokens, the reference {len(ws)}, asked "
+                                 f"{g}: a dropped or duplicated token")
+        t = next((i for i in range(g) if gs[i] != ws[i]), None)
+        if t is None:
+            exact += 1
+            continue
+        seq = torch.from_numpy(np.concatenate(
+            [p, np.asarray(ws, np.int32)]))[None].to(dev)
+        gap = stepwise_margins(torch, dev, cfg, params, seq, len(p),
+                               BS)[0, len(p) + t - 1].item()
+        log(f"[5c] {label}: request {b} first leaves the reference at "
+            f"token {t}: its top-2 margin {gap:.4f} (a near-tie under "
+            f"{SPEC_TIE:g})")
+        if not gap < SPEC_TIE:
+            raise AssertionError(f"{label}: request {b} diverges at token "
+                                 f"{t} with a clear top-2 margin {gap}")
+    log(f"[5c] {label}: {exact}/{len(want)} streams identical to the "
+        f"reference")
+    return exact
+
+
+def closed_loop(cfg, params, reqs, **kw):
+    """The streams of ``reqs`` [(prompt, gen)] pre-staged on one paged
+    engine (``kw``), drained: the open-loop runs' reference."""
+    from repro_torch.serving import PagedServingEngine
+    eng = PagedServingEngine(cfg, params, **kw)
+    ids = [eng.submit(p, g) for p, g in reqs]
+    res = eng.run_to_completion()
+    return [res[i] for i in ids]
+
+
+def phase_frontends(torch, dev, full):
+    """gemma-2b at full width through the legacy dense engine, the CLI's
+    open-loop front end, two replicas behind the router on the one card
+    (affinity and round-robin, then a replica failed mid-traffic) and
+    temperature sampling, each run with the launch counts set to 0 just
+    before it.  Returns {path: launch counts and numbers}."""
+    import numpy as np
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.ft.preemption import PreemptionSchedule
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.launch import serve as cli
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import (PagedServingEngine, ReplicaRouter,
+                                     ServingFrontend)
+    from repro_torch.serving.loadgen import build_workload
+    cfg, params, prompts = full["cfg"], full["params"], full["prompts"]
+    (B, P), G, BS = prompts.shape, 32, 16
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    out = {}
+    # -- (a) the legacy engine: 4 x (32 + 32), prefill token by token ----
+    eng = ServingEngine(cfg, params, max_slots=B, max_seq=P + G + 1,
+                        device=dev)
+    torch.cuda.synchronize()
+    zero_counts(kernel)
+    t0 = time.perf_counter()
+    ids = [eng.submit(row, G) for row in prompts]
+    res = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts(kernel)
+    got = [res[i] for i in ids]
+    seq, top2 = generate(cfg, params, torch.from_numpy(prompts).to(dev), G,
+                         return_top2=True)
+    want = seq[:, P:].cpu().tolist()
+    margins = torch.full((B, P + G), float("inf"))
+    margins[:, P - 1:P - 1 + G] = (top2[..., 0] - top2[..., 1]).cpu()
+    log(f"[5c] legacy engine: {B} requests x {G} tokens in {wall:.3f} s, "
+        f"{B * G / wall:.1f} tokens/s, {eng.dispatches} decode dispatches "
+        f"(one slot, one token each); kernel launches {c} (the dense "
+        f"engine runs plain PyTorch)")
+    if any(c.values()):
+        raise AssertionError("legacy engine: a paged kernel was launched")
+    varied("legacy engine", got)
+    near_ties("legacy engine vs generate", got, want, margins, P)
+    out["legacy engine"] = dict(c, tokens_per_s=B * G / wall, wall_s=wall)
+    # -- (b) open loop through the CLI, on the wall clock ----------------
+    base = ["--arch", cfg.name, "--device", str(dev), "--seed", "0"]
+    argv = base + ["--open-loop", "--mix", "chat", "--arrivals", "poisson",
+                   "--rate", "20", "--requests", "32", "--slo-ttft", "0.5",
+                   "--slo-tpot", "0.05"]
+    args = cli.parse_args(argv)
+    wl = build_workload(mix=args.mix, arrivals=args.arrivals,
+                        n=args.requests, seed=args.seed, vocab=cfg.vocab,
+                        rate=args.rate)
+    reqs = [(r.prompt, r.max_new_tokens) for r in wl]
+    cap = max(p.size + g for p, g in reqs) + 1
+    ekw = dict(max_slots=args.batch, block_size=args.block_size,
+               max_blocks_per_seq=-(-cap // args.block_size), device=dev)
+    torch.cuda.synchronize()
+    zero_counts(kernel)
+    report, streams = cli.run(cfg, params, args)
+    c = counts(kernel)
+    ol = report["open_loop"]
+    log(f"[5c] open loop (serve {' '.join(argv[4:])}): "
+        f"{ol['finished']}/{ol['requests']} finished in {report['wall_s']} "
+        f"s, {report['tokens_per_s']} tokens/s; TTFT p50 "
+        f"{ol['p50_ttft_s']:.4f} / p99 {ol['p99_ttft_s']:.4f} s, TPOT p50 "
+        f"{ol['p50_tpot_s']:.4f} / p99 {ol['p99_tpot_s']:.4f} s; "
+        f"throughput {ol['throughput_tok_s']:.1f}, goodput "
+        f"{ol['goodput_tok_s']:.1f} tokens/s at the SLO (TTFT 0.5 s, TPOT "
+        f"0.05 s; {ol['slo_frac']:.3f} of requests met it); "
+        f"{ol['rounds']} rounds, overlap_admitted {ol['overlap_admitted']}; "
+        f"{report['dispatches']} ticks, launches {c} "
+        f"({c['fp'] / max(1, L * report['dispatches']):g} update launches "
+        f"a tick and layer)")
+    if c["fp"] != L * report["dispatches"] or c["fp"] == 0:
+        raise AssertionError("open loop: the update kernel did not run "
+                             "once per layer per tick")
+    if ol["finished"] != len(wl):
+        raise AssertionError("open loop: a request did not finish")
+    got = [streams[f] for f in sorted(streams)]
+    ref = closed_loop(cfg, params, reqs, **ekw)
+    varied("open loop", got)
+    held_to(torch, dev, "open loop vs closed loop", cfg, params, reqs, got,
+            ref, BS)
+    out["open loop"] = dict(c, ticks=report["dispatches"], **{
+        k: ol[k] for k in ("p50_ttft_s", "p99_ttft_s", "p50_tpot_s",
+                           "p99_tpot_s", "throughput_tok_s", "goodput_tok_s",
+                           "slo_frac", "overlap_admitted")})
+    # -- (c) two replicas on the one card, one weight set ----------------
+    argv = base + ["--open-loop", "--mix", "agents", "--prefix-cache",
+                   "--host-cache-pages", "16", "--replicas", "2"]
+    wl = build_workload(mix="agents", n=32, seed=0, vocab=cfg.vocab,
+                        rate=20.0)
+    reqs = [(r.prompt, r.max_new_tokens) for r in wl]
+    cap = max(p.size + g for p, g in reqs) + 1
+    ekw = dict(ekw, max_blocks_per_seq=-(-cap // BS), prefix_cache=True,
+               host_cache_pages=16)
+    ref = closed_loop(cfg, params, reqs, **ekw)
+    for routing in ("affinity", "rr"):
+        label = f"router, 2 replicas, {routing}"
+        args = cli.parse_args(argv + ["--routing", routing])
+        torch.cuda.synchronize()
+        zero_counts(kernel)
+        report, streams = cli.run(cfg, params, args)
+        c = counts(kernel)
+        fl, ol = report["fleet"], report["open_loop"]
+        ticks = sum(r["dispatches"] for r in report["replicas"])
+        hits = [r["prefix_cache"]["hit_tokens"] for r in report["replicas"]]
+        log(f"[5c] {label}: placements {fl['placements']}, "
+            f"affinity_hit_tokens {fl['affinity_hit_tokens']}, prefix hits "
+            f"by replica {hits}; {report['wall_s']} s, "
+            f"{report['tokens_per_s']} tokens/s, TTFT p50 "
+            f"{ol['p50_ttft_s']:.4f} / p99 {ol['p99_ttft_s']:.4f} s; "
+            f"{ticks} replica ticks, launches {c}")
+        if c["fp"] != L * ticks or c["fp"] == 0:
+            raise AssertionError(f"{label}: the update kernel did not run "
+                                 f"once per layer per replica tick")
+        got = [streams[f] for f in sorted(streams)]
+        held_to(torch, dev, f"{label} vs one engine", cfg, params, reqs,
+                got, ref, BS)
+        out[label] = dict(c, ticks=ticks, prefix_hit_tokens=sum(hits),
+                          placements=fl["placements"],
+                          affinity_hit_tokens=fl["affinity_hit_tokens"],
+                          p50_ttft_s=ol["p50_ttft_s"],
+                          p99_ttft_s=ol["p99_ttft_s"],
+                          tokens_per_s=report["tokens_per_s"])
+    if not out["router, 2 replicas, affinity"]["affinity_hit_tokens"] > 0:
+        raise AssertionError("router: affinity placed nothing by prefix")
+    # a replica killed at tick 10 (the router's injected preemption, which
+    # calls fail_replica) while the front end serves the same traffic
+    label = "router, 2 replicas, a replica failed at tick 10"
+    retired = []
+
+    def build(i):
+        return PagedServingEngine(cfg, params, **ekw)
+
+    rt = ReplicaRouter(build, 2, routing="affinity",
+                       preemption=PreemptionSchedule(kill_at_steps=[10]),
+                       retire=retired.append)
+    fe = ServingFrontend(rt)
+    torch.cuda.synchronize()
+    zero_counts(kernel)
+    fids = fe.submit_workload(wl)
+    fe.drain()
+    torch.cuda.synchronize()
+    c = counts(kernel)
+    ticks = sum(e.dispatches for e in rt.replicas + retired)
+    got = [fe.result(f).tokens for f in fids]
+    log(f"[5c] {label}: failures {rt.replica_failures}, re-routed "
+        f"{rt.rerouted_total} requests, migrated {rt.migrated_pages} pages "
+        f"to the survivor's host tier; {ticks} replica ticks, launches {c}")
+    if not (rt.replica_failures == 1 and rt.rerouted_total > 0):
+        raise AssertionError(f"{label}: no replica failed with requests "
+                             f"on it")
+    if c["fp"] != L * ticks:
+        raise AssertionError(f"{label}: the update kernel did not run once "
+                             f"per layer per replica tick")
+    held_to(torch, dev, label, cfg, params, reqs, got, ref, BS)
+    out[label] = dict(c, ticks=ticks, rerouted=rt.rerouted_total,
+                      migrated_pages=rt.migrated_pages)
+    # -- (d) sampling at temperature 0.7 through the CLI, twice ----------
+    argv = base + ["--engine", "batch", "--temperature", "0.7"]
+    runs = [cli.run(cfg, params, cli.parse_args(argv))[1] for _ in range(2)]
+    greedy = cli.run(cfg, params, cli.parse_args(base + ["--engine",
+                                                         "batch"]))[1]
+    sampled = runs[0][:, P:].cpu().tolist()
+    same = torch.equal(runs[0], runs[1])
+    off = sum(a != b for s, g in zip(sampled, greedy[:, P:].cpu().tolist())
+              for a, b in zip(s, g))
+    log(f"[5c] sampling at temperature 0.7 (serve --engine batch, seed 0), "
+        f"twice: streams equal {same}; {off} of {B * G} tokens differ from "
+        f"greedy; distinct tokens per stream "
+        f"{[len(set(s)) for s in sampled]}")
+    if not same or off == 0:
+        raise AssertionError("sampling: a seeded generator gave two "
+                             "streams, or sampling gave the greedy stream")
+    log(f"[5c] phase 5c took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2965,6 +3215,7 @@ def main():
     full = phase_full_width(torch, dev)
     family_launches = phase_full_width_options(torch, dev, full, family_err)
     spec_launches = phase_full_width_spec_swap(torch, dev, full)
+    spec_launches.update(phase_frontends(torch, dev, full))
     fp_launches = full["launches"]
     del full                            # the full-width weights
     timing = phase_timing(torch, dev)
@@ -2997,7 +3248,8 @@ def main():
 
     def paths(key):
         """A kernel's launches on each of phase 5b's speculation, swap and
-        host-tier runs that launched it."""
+        host-tier runs and phase 5c's open-loop and router runs that
+        launched it."""
         return {"launches_by_path": {label: c[key]
                                      for label, c in spec_launches.items()
                                      if c[key]}}

@@ -307,16 +307,25 @@ class Platform:
                          routing: str = "affinity",
                          trace=None,
                          **engine_kwargs) -> RunHandle:
-        """Serve a request list with the port's paged engine on the
+        """Serve a request trace with the port's paged engine on the
         cluster's master device — ``run_on_cluster`` for the serving
         workload.
 
-        requests: ``[(prompt_tokens, max_new_tokens), ...]``: everything
-        pre-staged, the engine drains.  ``params`` must be on the
-        cluster's device.  token_budget: per-tick token cap for the unified
-        ragged dispatch.  trace: path to dump the engine's telemetry trace
-        to after the run drains (JSONL, or Chrome trace_event for
-        ``.json``).  engine_kwargs: forwarded to
+        requests: ``[(prompt_tokens, max_new_tokens), ...]``: the
+        closed-loop path, everything pre-staged, the engine drains.
+        open_loop: alternatively (exactly one of the two), a dict of
+        :func:`repro_torch.serving.loadgen.build_workload` kwargs
+        (``mix``, ``arrivals``, ``n``, ``seed``, ``rate``, ...) plus
+        optional ``slo_ttft_s`` / ``slo_tpot_s`` targets: the job builds
+        the seeded workload and serves it open-loop through
+        :class:`repro_torch.serving.ServingFrontend` on the wall clock;
+        the SLO scorecard comes back in ``metrics["open_loop"]`` and the
+        results are keyed by front-end id.  ``params`` must be on the
+        cluster's device.  token_budget: per-tick token cap for the
+        unified ragged dispatch.  trace: path to dump the engine's
+        telemetry trace to after the run drains (JSONL, or Chrome
+        trace_event for ``.json``; with replicas, one merged JSONL
+        stream).  engine_kwargs: forwarded to
         :class:`repro_torch.serving.PagedServingEngine` (max_slots,
         block_size, num_blocks, ...).
 
@@ -331,11 +340,20 @@ class Platform:
         or ``"swap"`` (a victim's pages parked in host RAM);
         host_cache_pages: the host tier of evicted prefix-cache pages (see
         the engine; swap and spill counters under ``metrics["blocks"]``).
+        replicas / routing: ``replicas > 1`` builds that many engines on
+        the master device, sharing ``params``, behind a
+        :class:`repro_torch.serving.ReplicaRouter` with ``routing``
+        placement (``"affinity"`` or ``"rr"``); the fleet rollup comes
+        back in ``metrics["fleet"]`` and the per-replica reports under
+        ``metrics["replicas"]``.
 
-        Not ported yet, each raising ``NotImplementedError`` with its
-        ROADMAP item: ``open_loop``, ``replicas > 1`` and a cluster with
-        ``tp_size > 1`` (``routing`` only matters with replicas).
+        Not ported yet: a cluster with ``tp_size > 1`` raises
+        ``NotImplementedError`` with its ROADMAP item.
         """
+        if (requests is None) == (open_loop is None):
+            raise ValueError("serve_on_cluster takes exactly one of "
+                             "requests= (closed-loop) or open_loop= "
+                             "(loadgen workload kwargs)")
         cluster = self._cluster(name)
         if cluster.tp_size != cluster.size:
             raise ResourceError(
@@ -345,31 +363,42 @@ class Platform:
                 f"{cluster.size}, model_axis={cluster.size})")
         if replicas < 1:
             raise ValueError("serve_on_cluster: replicas must be >= 1")
-        for lacking, option, item in (
-                (open_loop is not None, "open_loop", "Queue 1 item 9"),
-                (replicas > 1, "replicas > 1", "Queue 1 item 9"),
-                (cluster.tp_size > 1, "serving on a cluster with "
-                 "tp_size > 1", "Queue 1 item 13")):
-            if lacking:
-                raise _later(option, item)
-        if requests is None:
-            raise ValueError("serve_on_cluster takes requests= (the "
-                             "closed-loop path)")
+        if cluster.tp_size > 1:
+            raise _later("serving on a cluster with tp_size > 1",
+                         "Queue 1 item 13")
 
         def job(ctx: JobContext):
-            from repro_torch.serving import PagedServingEngine
+            from repro_torch.serving import (PagedServingEngine,
+                                             ReplicaRouter, ServingFrontend)
 
-            eng = PagedServingEngine(cfg, params, token_budget=token_budget,
-                                     prefix_cache=prefix_cache,
-                                     speculate=speculate, draft_k=draft_k,
-                                     kv_dtype=kv_dtype, preempt=preempt,
-                                     host_cache_pages=host_cache_pages,
-                                     device=ctx.cluster.master,
-                                     **engine_kwargs)
-            ids = [eng.submit(p, g) for p, g in requests]
-            results = eng.run_to_completion()
-            out = {rid: results[rid] for rid in ids}
-            metrics = eng.metrics()
+            def build(i: int) -> PagedServingEngine:
+                return PagedServingEngine(
+                    cfg, params, token_budget=token_budget,
+                    prefix_cache=prefix_cache, speculate=speculate,
+                    draft_k=draft_k, kv_dtype=kv_dtype, preempt=preempt,
+                    host_cache_pages=host_cache_pages,
+                    device=ctx.cluster.master, **engine_kwargs)
+
+            eng = (ReplicaRouter(build, replicas, routing=routing)
+                   if replicas > 1 else build(0))
+            if open_loop is not None:
+                from repro_torch.serving.loadgen import build_workload
+                kw = dict(open_loop)
+                slo = {k: kw.pop(k, None)
+                       for k in ("slo_ttft_s", "slo_tpot_s")}
+                kw.setdefault("vocab", cfg.vocab)
+                wl = build_workload(**kw)
+                fe = ServingFrontend(eng)
+                fids = fe.submit_workload(wl)
+                fe.drain()
+                out = {fid: fe.result(fid).tokens for fid in fids}
+                metrics = eng.metrics()
+                metrics["open_loop"] = fe.report(**slo)
+            else:
+                ids = [eng.submit(p, g) for p, g in requests]
+                results = eng.run_to_completion()
+                out = {rid: results[rid] for rid in ids}
+                metrics = eng.metrics()
             ctx.save_result("tokens", {str(rid): np.asarray(t, np.int32)
                                        for rid, t in out.items()})
             if trace is not None:

@@ -1,26 +1,42 @@
-"""Serving entry point of the PyTorch port: the isolated greedy oracle and the
-command line of its paged engine and static batch.  The counterpart of
+"""Serving entry point of the PyTorch port: the isolated decoding oracle and
+the command line of its engines.  The counterpart of
 ``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --engine paged --batch 4 --prompt-len 32 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+        --engine paged --open-loop --mix chat --arrivals poisson \
+        --rate 20 --requests 32 --slo-ttft 0.5
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --engine batch --batch 4 --prompt-len 512 --gen 32
 
 runs on the GPU (``--device cpu --reduced`` runs the plain PyTorch path on
 the CPU) and prints the JAX CLI's JSON report: wall time and tokens/s, plus
-the paged engine's ``metrics()`` fields.  ``--engine batch`` is the JAX
-CLI's static batched ``generate``, greedy only; it serves every family the
-port runs, the RWKV family from its constant-size state.  Weights are
-random, from the port's seeded ``init_params``; prompts come from
-``--seed``.
+the engine's ``metrics()`` fields.
+
+``--engine`` selects the serving path: ``batch`` (the static batched
+``generate``, greedy or sampled at ``--temperature``; it serves every
+family the port runs, the RWKV family from its constant-size state),
+``legacy`` (per-slot continuous batching over a dense cache,
+``repro_torch.core.serving``) or ``paged`` (the paged engine,
+``repro_torch.serving``; the default).  ``--replicas N`` serves through N
+paged engines behind a ``ReplicaRouter`` (``--routing affinity`` or
+``rr``), all on the one device and one weight set.  ``--open-loop`` serves
+a seeded ``repro_torch.serving.loadgen`` workload (``--mix`` x
+``--arrivals``, paced by ``--rate`` or replayed from ``--trace-file``)
+through ``ServingFrontend`` on the wall clock; the report carries the SLO
+scorecard under ``open_loop``.  ``--trace PATH`` dumps the paged engine's
+telemetry (JSONL, or Chrome trace_event for ``.json``; one merged JSONL
+stream with ``--replicas`` > 1).  Weights are random, from the port's
+seeded ``init_params``; ``--seed`` also seeds the prompts, the open-loop
+workload and the sampling noise.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,18 +46,47 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import logits_from_hidden
 
 
+class GumbelDraws:
+    """The seam for sampling's randomness: ``draws(i, shape)`` returns
+    decode step i's standard Gumbel noise of ``shape`` (fp32) from
+    ``generator``, in call order (i itself is not used: a replay can index
+    by it).  Nothing here waits for the device."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device):
+        self.gen, self.device = generator, device
+
+    def __call__(self, i: int, shape) -> torch.Tensor:
+        u = torch.rand(shape, generator=self.gen, device=self.device)
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
 @torch.no_grad()
 def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Callable[[int, tuple], torch.Tensor]] = None,
              return_top2: bool = False
              ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Isolated greedy decoding through a decode cache (dense K/V, or the
-    RWKV state): prompts (B, S0) -> (B, S0 + gen) tokens on the prompts'
-    device.  The oracle every engine test holds the paged engine to.
+    """Isolated decoding through a decode cache (dense K/V, or the RWKV
+    state): prompts (B, S0) -> (B, S0 + gen) tokens on the prompts'
+    device.  Greedy at ``temperature`` 0: the oracle every engine test
+    holds the engines to.
+
+    At ``temperature`` > 0 each step samples as the JAX package's
+    ``jax.random.categorical`` does: ``argmax(logits / T + g)`` with ``g``
+    standard Gumbel noise over the (B, padded vocab) row, drawn by
+    ``draws(i, shape)`` (default :class:`GumbelDraws` over ``generator``,
+    a ``torch.Generator`` on the prompts' device, seeded 0 if not given).
 
     With ``return_top2`` also returns the (B, gen, 2) fp32 values of the
     two largest logits at each step: how close each greedy choice was.
     """
     B, S0 = prompts.shape
+    if temperature > 0 and draws is None:
+        if generator is None:
+            generator = torch.Generator(device=prompts.device).manual_seed(0)
+        draws = GumbelDraws(generator, prompts.device)
     cache = M.init_cache(cfg, B, S0 + gen, device=prompts.device)
     hidden, cache = M.prefill_cached(cfg, params, {"tokens": prompts}, cache)
     logits = logits_from_hidden(params, hidden[:, -1:], cfg)
@@ -51,7 +96,12 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
         last = logits[:, -1].float()
         if return_top2:
             top2.append(torch.topk(last, 2, dim=-1).values)
-        nxt = torch.argmax(last, dim=-1)[:, None].to(prompts.dtype)
+        if temperature > 0:
+            noise = draws(i, tuple(last.shape)).to(last.device)
+            nxt = torch.argmax(last / temperature + noise, dim=-1)
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        nxt = nxt[:, None].to(prompts.dtype)
         toks = torch.cat([toks, nxt], dim=1)
         if i + 1 < gen:
             logits, cache = M.decode_step(cfg, params, cache, nxt,
@@ -61,17 +111,22 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
     return toks
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The command line, validated as the JAX CLI validates it."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--engine", choices=("batch", "paged"),
+    ap.add_argument("--engine", choices=("batch", "legacy", "paged"),
                     default="paged",
-                    help="serving path: 'batch' the static batched greedy "
-                         "generate, 'paged' the paged engine")
+                    help="serving path: 'batch' the static batched "
+                         "generate, 'legacy' per-slot continuous batching "
+                         "over a dense cache, 'paged' the paged engine")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (--engine batch; 0 = "
+                         "greedy)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="KV page size")
     ap.add_argument("--token-budget", type=int, default=0,
@@ -105,11 +160,57 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="host-RAM tier, in pages, for evicted "
                          "prefix-cache pages (with --prefix-cache; 0 "
                          "disables it)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="paged engines behind a ReplicaRouter on the one "
+                         "device (DESIGN.md §14); 1 drives the engine "
+                         "directly")
+    ap.add_argument("--routing", choices=("affinity", "rr"),
+                    default="affinity",
+                    help="replica placement (with --replicas > 1): "
+                         "'affinity' probes each replica's page-digest "
+                         "caches and falls back to pool-pressure "
+                         "balancing under an anti-herd cap; 'rr' is "
+                         "round-robin")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="dump the paged engine's telemetry trace here "
+                         "after the run (DESIGN.md §10): JSONL, or Chrome "
+                         "trace_event when PATH ends in .json; JSONL only "
+                         "with --replicas > 1")
+    ap.add_argument("--open-loop", action="store_true",
+                    help="serve a seeded open-loop workload through "
+                         "ServingFrontend instead of pre-staged prompts "
+                         "(paged engine; DESIGN.md §12)")
+    ap.add_argument("--mix", default="chat",
+                    help="open-loop request-shape mix: chat, longdoc, "
+                         "agents, or classify (repro_torch.serving.loadgen)")
+    ap.add_argument("--arrivals", choices=("poisson", "bursty", "trace"),
+                    default="poisson",
+                    help="open-loop arrival process (trace replays "
+                         "--trace-file)")
+    ap.add_argument("--rate", type=float, default=20.0,
+                    help="mean arrival rate, req/s (--arrivals poisson)")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="open-loop workload size")
+    ap.add_argument("--trace-file", default=None, metavar="PATH",
+                    help="arrival trace to replay (--arrivals trace): one "
+                         "float per line, or JSONL with t/prompt_len/"
+                         "max_new_tokens")
+    ap.add_argument("--slo-ttft", type=float, default=None, metavar="S",
+                    help="TTFT SLO in seconds for the goodput scorecard")
+    ap.add_argument("--slo-tpot", type=float, default=None, metavar="S",
+                    help="per-output-token SLO in seconds for the goodput "
+                         "scorecard")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="seed of the random weights, the prompts, the "
+                         "open-loop workload (arrivals and request "
+                         "content) and the sampling noise")
     args = ap.parse_args(argv)
+
+    if args.engine != "batch" and args.temperature > 0:
+        ap.error("--temperature is only supported with --engine batch "
+                 "(the serving engines decode greedily)")
     if args.engine != "paged" and (args.token_budget or
                                    args.tick != "unified" or
                                    args.prefix_cache or args.speculate or
@@ -119,28 +220,66 @@ def main(argv: Optional[List[str]] = None) -> dict:
         ap.error("--token-budget/--tick/--prefix-cache/--speculate/"
                  "--kv-dtype/--preempt/--host-cache-pages are paged-engine "
                  "knobs")
+    if args.trace is not None and args.engine != "paged":
+        ap.error("--trace requires --engine paged (the telemetry lives in "
+                 "the paged engine; DESIGN.md §10)")
+    if args.open_loop and args.engine != "paged":
+        ap.error("--open-loop requires --engine paged (the front end "
+                 "serves over the paged engine; DESIGN.md §12)")
+    if args.open_loop and args.arrivals == "trace" \
+            and args.trace_file is None:
+        ap.error("--arrivals trace needs --trace-file")
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    if args.replicas > 1 and args.engine != "paged":
+        ap.error("--replicas/--routing require --engine paged (the router "
+                 "fans out over paged engines; DESIGN.md §14)")
+    if args.replicas > 1 and args.trace is not None \
+            and args.trace.endswith(".json"):
+        ap.error("merged multi-replica traces are JSONL-only; use a .jsonl "
+                 "--trace path with --replicas > 1")
+    return args
 
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     params = M.init_params(cfg, seed=args.seed, device=args.device)
+    report, _ = run(cfg, params, args)
+    print(json.dumps(report, indent=1))
+    return report
+
+
+def run(cfg, params, args: argparse.Namespace) -> Tuple[dict, Any]:
+    """Serve as ``args`` (from :func:`parse_args`) say, with ``params`` on
+    ``args.device``.  Returns (the JSON report, what was served): the
+    (batch, prompt + gen) tokens for ``--engine batch``, else the streams
+    by request id (front-end ids with ``--open-loop``)."""
+    dev = torch.device(args.device)
     rng = np.random.default_rng(args.seed + 1)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
-    dev = torch.device(args.device)
     if args.engine == "batch":
         toks = torch.from_numpy(prompts).to(dev)
+        generator = None
+        if args.temperature > 0:
+            generator = torch.Generator(device=dev).manual_seed(args.seed)
         t0 = time.time()
-        out = generate(cfg, params, toks, args.gen)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        out = generate(cfg, params, toks, args.gen,
+                       temperature=args.temperature, generator=generator)
+        _sync(dev)
         wall = time.time() - t0
         n_tokens = args.batch * args.gen
         shape, extra = list(out.shape), {}
     else:
-        results, extra, wall = _serve_paged(cfg, params, prompts, args)
-        n_tokens = sum(len(v) for v in results.values())
-        shape = [len(results)]
+        if args.open_loop:
+            out, extra, wall = _serve_open_loop(cfg, params, args)
+        else:
+            out, extra, wall = _serve_engine(cfg, params, prompts, args)
+        n_tokens = sum(len(v) for v in out.values())
+        shape = [len(out)]
     report = {
         "arch": cfg.name, "engine": args.engine, "batch": args.batch,
         "prompt_len": args.prompt_len, "generated": args.gen,
@@ -151,32 +290,89 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "output_shape": shape,
         **extra,
     }
-    print(json.dumps(report, indent=1))
-    return report
+    return report, out
 
 
-def _serve_paged(cfg, params, prompts: np.ndarray, args
-                 ) -> Tuple[dict, dict, float]:
-    """Serve ``prompts`` through the paged engine.  Returns (streams by
-    request id, the engine's metrics, wall seconds)."""
-    from repro_torch.serving import PagedServingEngine
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
+
+def _paged(cfg, params, args, max_seq: int):
+    """The paged engine ``args`` describe, or ``args.replicas`` of them
+    behind a router, each sized for requests of up to ``max_seq``
+    tokens."""
+    from repro_torch.serving import PagedServingEngine, ReplicaRouter
+
+    def build(i: int) -> PagedServingEngine:
+        return PagedServingEngine(
+            cfg, params, max_slots=args.batch, block_size=args.block_size,
+            max_blocks_per_seq=-(-max_seq // args.block_size),
+            token_budget=args.token_budget or None,
+            unified=args.tick == "unified", prefix_cache=args.prefix_cache,
+            speculate=args.speculate, draft_k=args.draft_k,
+            kv_dtype=args.kv_dtype, preempt=args.preempt,
+            host_cache_pages=args.host_cache_pages, device=args.device)
+
+    if args.replicas > 1:
+        return ReplicaRouter(build, args.replicas, routing=args.routing)
+    return build(0)
+
+
+def _finish(eng, args, extra: Dict[str, Any]) -> Dict[str, Any]:
+    if args.trace is not None:
+        extra["trace"] = {"path": str(args.trace),
+                          "format": eng.dump_trace(args.trace)}
+    return extra
+
+
+def _serve_engine(cfg, params, prompts: np.ndarray, args
+                  ) -> Tuple[Dict[int, List[int]], dict, float]:
+    """Serve ``prompts`` through the legacy or the paged engine (or a
+    fleet of paged engines).  Returns (streams by request id, the
+    engine's metrics, wall seconds)."""
     max_seq = args.prompt_len + args.gen + 1
-    eng = PagedServingEngine(
-        cfg, params, max_slots=args.batch, block_size=args.block_size,
-        max_blocks_per_seq=-(-max_seq // args.block_size),
-        token_budget=args.token_budget or None,
-        unified=args.tick == "unified", prefix_cache=args.prefix_cache,
-        speculate=args.speculate, draft_k=args.draft_k,
-        kv_dtype=args.kv_dtype, preempt=args.preempt,
-        host_cache_pages=args.host_cache_pages, device=args.device)
+    if args.engine == "legacy":
+        from repro_torch.core.serving import ServingEngine
+        eng = ServingEngine(cfg, params, max_slots=args.batch,
+                            max_seq=max_seq, device=args.device)
+    else:
+        eng = _paged(cfg, params, args, max_seq)
     t0 = time.time()
-    for row in prompts:
-        eng.submit(row, args.gen)
+    ids = [eng.submit(row, args.gen) for row in prompts]
     results = eng.run_to_completion()
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize()
-    return results, eng.metrics(), time.time() - t0
+    _sync(torch.device(args.device))
+    wall = time.time() - t0
+    return ({rid: results[rid] for rid in ids},
+            _finish(eng, args, eng.metrics()), wall)
+
+
+def _serve_open_loop(cfg, params, args
+                     ) -> Tuple[Dict[int, List[int]], dict, float]:
+    """Serve the seeded open-loop workload through ``ServingFrontend`` on
+    the wall clock.  Returns (streams by front-end id, the engine's
+    metrics with the SLO scorecard under ``open_loop``, wall seconds)."""
+    from repro_torch.serving import ServingFrontend
+    from repro_torch.serving.loadgen import build_workload
+    wl = build_workload(mix=args.mix, arrivals=args.arrivals,
+                        n=args.requests, seed=args.seed, vocab=cfg.vocab,
+                        rate=args.rate, trace=args.trace_file)
+    cap = max(r.prompt.size + r.max_new_tokens for r in wl) + 1
+    eng = _paged(cfg, params, args, cap)
+    fe = ServingFrontend(eng)
+    t0 = time.time()
+    fids = fe.submit_workload(wl)
+    fe.drain()
+    _sync(torch.device(args.device))
+    wall = time.time() - t0
+    extra = eng.metrics()
+    extra["open_loop"] = fe.report(slo_ttft_s=args.slo_ttft,
+                                   slo_tpot_s=args.slo_tpot)
+    extra["workload"] = {"mix": args.mix, "arrivals": args.arrivals,
+                         "requests": len(wl), "seed": args.seed,
+                         "rate_req_s": args.rate}
+    return ({fid: fe.result(fid).tokens for fid in fids},
+            _finish(eng, args, extra), wall)
 
 
 if __name__ == "__main__":

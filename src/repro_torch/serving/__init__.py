@@ -13,11 +13,25 @@ Components:
                   (a copy of ``repro/serving/scheduler.py``)
     speculative — the n-gram drafter (a copy of
                   ``repro/serving/speculative.py``)
+    loadgen     — seeded open-loop workloads (Poisson / bursty / trace
+                  arrivals x named request mixes) and the SLO scorecard
+                  (a copy of ``repro/serving/loadgen.py``)
+    frontend    — ServingFrontend: open-loop request server
+                  (submit/stream/cancel/drain) whose host admission
+                  overlaps the in-flight tick; VirtualClock
+    router      — ReplicaRouter: N engines behind the engine contract,
+                  prefix-affinity or round-robin placement, elastic resize
+                  and replica failure with re-routing
+
+The legacy dense-cache engine is ``repro_torch.core.serving.ServingEngine``.
 """
 from repro_torch.serving.blocks import BlockAllocator, BlockTable
 from repro_torch.serving.engine import PagedServingEngine
+from repro_torch.serving.frontend import ServingFrontend, VirtualClock
+from repro_torch.serving.router import ReplicaRouter
 from repro_torch.serving.scheduler import FCFSScheduler, RequestStats
 from repro_torch.serving.speculative import NGramDrafter
 
 __all__ = ["BlockAllocator", "BlockTable", "FCFSScheduler", "NGramDrafter",
-           "PagedServingEngine", "RequestStats"]
+           "PagedServingEngine", "ReplicaRouter", "RequestStats",
+           "ServingFrontend", "VirtualClock"]

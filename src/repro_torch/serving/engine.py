@@ -916,8 +916,14 @@ class PagedServingEngine:
         # ONE packed int32 buffer carries the whole tick —
         #   [tokens | positions | verify_idx | row_map | req_tables]
         # — one host->device copy per tick.  Block tables ride per
-        # REQUEST row, never once per packed token.
-        buf = np.zeros(2 * Tb + R * vw + R * chm + R * MB, np.int32)
+        # REQUEST row, never once per packed token.  On the card the
+        # buffer is pinned and the copy asynchronous, so the launch waits
+        # for nothing already queued (another replica's tick on the same
+        # card) and step_begin returns with the tick in flight
+        host = torch.zeros(2 * Tb + R * vw + R * chm + R * MB,
+                           dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
+        buf = host.numpy()
         tokens = buf[:Tb]
         positions = buf[Tb:2 * Tb]
         positions[:] = -1
@@ -960,7 +966,7 @@ class PagedServingEngine:
             if self._tick_device_t0 is None:
                 self._tick_device_t0 = f0
         next_tokens = self._greedy_unified(
-            torch.from_numpy(buf).to(self.device),
+            host.to(self.device, non_blocking=True),
             self._live_bound(positions), chm, vw)
         self.dispatches += 1
         return {"next_tokens": next_tokens, "decoding": decoding,

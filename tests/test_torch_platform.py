@@ -298,20 +298,16 @@ def test_serve_on_cluster_matches_generate(platform):
     (dict(host_cache_pages=8), "Queue 1 item 6"),
 ])
 def test_serve_options_not_ported(platform, kw, item):
-    """Serving options of later slices raise, naming their ROADMAP item,
-    and leave the cluster unlocked: ``open_loop`` (kw0) and ``replicas=2``
-    (kw1) still do.  The name is kept, though the other five cases are
-    ported now: ``prefix_cache=True`` (kw2), ``speculate=True`` (kw3),
-    ``kv_dtype="int8"`` (kw4), ``preempt="swap"`` (kw5) and
-    ``host_cache_pages=8`` (kw6) serve through the verbs instead, a
-    repeated prompt included, with exactly the tokens of the port's
-    ``generate`` (reduced granite-3-2b, fp32, on the CPU)."""
+    """Serving options of later slices, by the ROADMAP item that named them
+    when they still raised.  The name is kept, though every case is ported
+    now: ``open_loop`` (kw0), ``replicas=2`` (kw1), ``prefix_cache=True``
+    (kw2), ``speculate=True`` (kw3), ``kv_dtype="int8"`` (kw4),
+    ``preempt="swap"`` (kw5) and ``host_cache_pages=8`` (kw6) serve through
+    the verbs, a repeated prompt included (kw0: a seeded open-loop
+    workload on the wall clock), with exactly the tokens of the port's
+    ``generate`` (reduced granite-3-2b, fp32, on the CPU), and leave the
+    cluster unlocked."""
     platform.create_instance("srv")
-    if "open_loop" in kw or "replicas" in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            platform.serve_on_cluster("srv", None, None, [], **kw)
-        assert not platform.clusters["srv"].in_use
-        return
     from repro_torch.config import get_config, reduced
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
@@ -321,14 +317,30 @@ def test_serve_options_not_ported(platform, kw, item):
     prompt = rng.integers(0, cfg.vocab, 8).astype(np.int32)
     reqs = [(prompt, 4), (rng.integers(0, cfg.vocab, 5).astype(np.int32), 3),
             (prompt.copy(), 4)]
-    h = platform.serve_on_cluster("srv", cfg, params, reqs, runname="s",
-                                  max_slots=1, block_size=4,
-                                  max_blocks_per_seq=4, **kw)
+    engine_kw = dict(max_slots=1, block_size=4, max_blocks_per_seq=4)
+    if "open_loop" in kw:
+        from repro_torch.serving.loadgen import build_workload
+        reqs = [(r.prompt, r.max_new_tokens)
+                for r in build_workload(vocab=cfg.vocab, **kw["open_loop"])]
+        engine_kw["max_blocks_per_seq"] = 12     # the chat mix's longest
+        h = platform.serve_on_cluster("srv", cfg, params, runname="s",
+                                      **engine_kw, **kw)
+    else:
+        h = platform.serve_on_cluster("srv", cfg, params, reqs, runname="s",
+                                      **engine_kw, **kw)
     out = h.result["results"]
+    assert len(out) == len(reqs)
     for rid, (p, g) in zip(sorted(out), reqs):
         ref = generate(cfg, params, torch.from_numpy(p)[None], g)
         assert out[rid] == ref[0, len(p):].tolist()
     m = h.result["metrics"]
+    if "open_loop" in kw:
+        assert m["open_loop"]["finished"] == len(reqs) == 2
+        assert m["open_loop"]["p50_ttft_s"] is not None
+    if "replicas" in kw:
+        assert m["fleet"]["replicas"] == 2
+        assert m["fleet"]["finished"] == len(reqs)
+        assert len(m["replicas"]) == 2
     if "prefix_cache" in kw:
         assert m["prefix_cache"]["enabled"]
         assert m["prefix_cache"]["hit_tokens"] > 0
@@ -340,6 +352,15 @@ def test_serve_options_not_ported(platform, kw, item):
         assert m["preempt"] == "swap"
     if "host_cache_pages" in kw:
         assert m["blocks"]["host_cache_capacity_pages"] == 8
+    assert not platform.clusters["srv"].in_use
+
+
+def test_serve_takes_requests_or_open_loop(platform):
+    platform.create_instance("srv")
+    for requests, open_loop in (([], {"n": 2}), (None, None)):
+        with pytest.raises(ValueError, match="exactly one"):
+            platform.serve_on_cluster("srv", None, None, requests,
+                                      open_loop=open_loop)
     assert not platform.clusters["srv"].in_use
 
 
