@@ -38,11 +38,21 @@ Phases, each raising on failure:
      5 rows a request, and the unified tick's S = 8 view of 5-row chains;
      ragged chains crossing pages), pools bit-equal, below a walk that
      skips the scatter and one without the causal mask inside the chain;
-     copy_page on bf16, int8 and
+     the walk at head_dim 128, split over pages (the fused update over fp
+     and int8 pools and the read-only walk over both) at glm4-9b's decode
+     (B 4, 32 heads over 2 kv heads), olmoe-1b-7b's prefill chunk crossing
+     pages (16 heads, 16 kv heads) and grok-1-314b's GQA (48 over 8) with
+     softcap 30, below a walk that skips the scatter, drops the last page
+     or skips the scales, pools bit-equal; copy_page on bf16, int8 and
      fp32 scale pools with host and device ids, the destination bit-equal
      to the source in every layer, every other page untouched, a copy
      that stops at layer 0 reading above 0, and bad device ids setting
-     the error flag;
+     the error flag; copy_pages over gemma-2b's whole cache (fp: K, V;
+     int8: K, V and their scale pools) in one launch, host and device
+     ids, every pool's destination bit-equal, beside a copy that stops at
+     layer 0 and one that skips the last pool, and bad device ids moving
+     nothing in any pool; each paged and copy instantiation's registers
+     and spills;
   4. reduced granite-3-2b in fp32: the paged engine's streams must equal
      the port's isolated greedy ``generate`` token for token, for ragged
      prompts with mid-flight admission;
@@ -61,8 +71,9 @@ Phases, each raising on failure:
      int8 update's launches must equal n_layers x ticks, every request
      finishes); the unified and the two-dispatch tick (streams equal);
      the prefix cache on a 48-token system prompt with distinct 112-token
-     suffixes and one prompt repeated in full (streams byte-equal to the cache off,
-     hits, copy-on-write copies through copy_page).  Over the pools the
+     suffixes and one prompt repeated in full (streams byte-equal to the
+     cache off, hits, one copy_pages launch per copy-on-write copy, every
+     pool of the cache in it; so on every path below).  Over the pools the
      int8 and fp runs filled, mid-decode, the read-only walk (the public
      ``paged_attn.paged_attention``) against its plain version.  Then,
      each run with the counts set to 0 just before it and the update
@@ -104,13 +115,17 @@ Phases, each raising on failure:
   6. device time per call (the median of CUDA events around each call,
      behind a queued sleep) of the kernel, its plain version and one
      PyTorch library call (``scaled_dot_product_attention`` over
-     pre-gathered pages, a yardstick the port never calls) at the decode
-     and prefill shapes, beside the kernel's bound;
-  6b. the same for the int8 update (decode and prefill), against SDPA
-     over pages gathered and dequantized beforehand and against the
-     gather, the dequantize and SDPA all timed, the read-only walk over fp
-     and int8 pools (decode), and copy_page on gemma-2b's K pool against
-     ``index_copy_``;
+     pre-gathered pages, a yardstick the port never calls) at gemma-2b's
+     decode and prefill shapes and glm4-9b's decode at head_dim 128,
+     beside the kernel's bound;
+  6b. the same for the int8 update (decode, prefill, glm4-9b decode),
+     against SDPA over pages gathered and dequantized beforehand and
+     against the gather, the dequantize and SDPA all timed, the read-only
+     walk over fp and int8 pools (gemma-2b and glm4-9b decode), copy_page
+     on gemma-2b's K pool against ``index_copy_``, and one copy-on-write
+     over gemma-2b's whole cache (fp and int8 pages) through the engine's
+     ``_copy_page``: launches, device ms, host us a COW, against
+     ``index_copy_`` on each pool;
   7. the CATopt fitness kernel against its plain version on the card: sq
      within ``FIT_RTOL`` relative at the paper's scale (E 8192, m 2048,
      P 200) and the polish's (P 4) on a ``make_problem`` instance, at two
@@ -530,17 +545,174 @@ def verify_chain_cases(torch, dev, worst):
             worst[key] = max(worst[key], max_err(got[0]))
 
 
-def phase_family_vs_plain(torch, dev):
-    """The int8 update, the read-only walk (fp and int8) and copy_page
-    against their plain versions at the main paths' shapes, and the fused
-    update at the verify-chain shapes.  Returns the worst max |kernel -
-    plain| of each: {"int8", "readonly", "copy", "verify"} ("verify": the
-    fp update at the chain shapes; int8 chains count under "int8")."""
+def d128_cases(torch, dev, worst):
+    """The walk at head_dim 128, split over pages, bf16, block 16: the
+    fused update over fp and int8 pools and the read-only walk over both,
+    at glm4-9b's decode (B 4, S 1, 32 heads over 2 kv heads), olmoe-1b-7b's
+    prefill chunk crossing pages (S 16, 16 heads, 16 kv heads) and
+    grok-1-314b's GQA (48 heads over 8) with softcap 30.  Live rows within
+    the tolerance, below a walk that skips the scatter, drops the last
+    page or (int8) skips the scales; the update's pools and scale pools
+    bit-equal, the read-only walk's unchanged.  With int8 pools the
+    outputs are held to the plain version in the TPU kernel's precision
+    (``repro/kernels/paged_attention/kernel.py:114-139`` dequantizes into
+    fp32 and keeps p in fp32, as this kernel does): the plain version on
+    fp32 q and fresh rows.  On bf16 q it rounds the dequantized pages and
+    p to bf16, and lands 2 bf16 ulps (0.03125 on an H100) from the kernel
+    at grok-1-314b's shape in ``tests/test_torch_cuda.py``, further from
+    the fp32 result than the kernel is."""
     from repro_torch.kernels.paged_attention import kernel, ref
+    bf16 = torch.bfloat16
+    cases = [
+        ("glm4-9b decode S=1 B=4, H 32 Hkv 2", dict(
+            B=4, S=1, starts=[40, 47, 33, 63], ns=[1, 1, 1, 1], H=32, Hkv=2,
+            D=128, BS=16, dtype=bf16), {}),
+        ("olmoe-1b-7b prefill chunk S=16 B=3 crossing pages, H 16 Hkv 16",
+         dict(B=3, S=16, starts=[8, 20, 0], ns=[16, 16, 11], H=16, Hkv=16,
+              D=128, BS=16, dtype=bf16), {}),
+        ("grok-1-314b GQA S=2 B=3, H 48 Hkv 8, softcap 30", dict(
+            B=3, S=2, starts=[30, 55, 4], ns=[2, 1, 2], H=48, Hkv=8, D=128,
+            BS=16, dtype=bf16), dict(softcap=30.0)),
+    ]
+    tol = TOL["bfloat16"]
+    for i, (name, shape, extra) in enumerate(cases):
+        c = quantized(torch, dict(make_case(torch, dev, 800 + i, **shape),
+                                  **extra))
+        live = c["pos"] >= 0
+        for quant in (False, True):
+            kind = "int8" if quant else "fp"
+            fn = call_int8 if quant else call
+            want = fn(ref.unified_attention_update, c)
+            got = fn(kernel.paged_attention_update, c)
+            # the plain version in the TPU kernel's precision
+            cp = (dict(c, **{k: c[k].float() for k in ("q", "kn", "vn")})
+                  if quant else c)
+            out_want = fn(ref.unified_attention_update, cp)[0]
+            pools = ([c["kq"], c["vq"], c["ks"], c["vs"]] if quant
+                     else [c["kp"], c["vp"]])
+            before = [x.clone() for x in pools]
+            ro = readonly(kernel.paged_attention, c, quant)
+            ro_want = readonly(ref.paged_attention, cp, quant).float()
+            torch.cuda.synchronize()
+
+            def err(out, to):
+                return (out.float() - to.float())[live].abs().max().item()
+
+            wrong = {"scatter skipped": err(ro_want, out_want),
+                     "last page dropped": err(fn(
+                         ref.unified_attention_update,
+                         dict(cp, live=c["live"] - 1))[0], out_want)}
+            ro_wrong = {"last page dropped": err(readonly(
+                ref.paged_attention, cp, quant, live=c["live"] - 1), ro_want)}
+            if quant:
+                ones = torch.ones_like(c["ks"])
+                no_scales = ref.paged_attention(
+                    cp["q"], c["kq"], c["vq"], c["tables"], c["pos"],
+                    window=c["window"], softcap=c["softcap"],
+                    max_live_blocks=c["live"], k_scale=ones, v_scale=ones)
+                ro_wrong["scales skipped"] = err(no_scales, ro_want)
+            equal = all(torch.equal(got[j][1:], want[j][1:])
+                        for j in range(1, len(want)))
+            finite = bool(torch.isfinite(got[0].float()).all()
+                          and torch.isfinite(ro.float()).all())
+            judge(f"D 128 {kind} update, {name}", err(got[0], out_want), tol,
+                  wrong, f", pools bit-equal {equal}, finite {finite}")
+            unchanged = all(torch.equal(x, y) for x, y in zip(pools, before))
+            judge(f"D 128 {kind} read-only, {name}", err(ro, ro_want), tol,
+                  ro_wrong, f", pools unchanged {unchanged}")
+            if not (equal and finite and unchanged):
+                raise AssertionError(f"D 128 walk: pools differ, a pool "
+                                     f"written or non-finite: {kind} {name}")
+            worst["d128"] = max(worst["d128"], err(got[0], out_want),
+                                err(ro, ro_want))
+
+
+def gemma_cache_sets(torch, dev, L, NB, seed):
+    """gemma-2b's cache at batch 4 (block 16, one kv head of 256), as the
+    engine holds it: {"fp": [K, V] bf16, "int8": [K, V, K-scale,
+    V-scale]}, random rows (int8: quantized by ``ref.quantize_rows``)."""
+    from repro_torch.kernels.paged_attention import ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v = (torch.randn((L, NB, 16, 1, 256), generator=g, device=dev)
+            for _ in range(2))
+    (kq, ks), (vq, vs) = ref.quantize_rows(k), ref.quantize_rows(v)
+    return {"fp": [k.to(torch.bfloat16), v.to(torch.bfloat16)],
+            "int8": [kq, vq, ks.contiguous(), vs.contiguous()]}
+
+
+def copy_pages_cases(torch, dev, worst):
+    """copy_pages over gemma-2b's whole cache at batch 4, fp and int8
+    pages, host and device ids: one launch a call, page dst bit-equal to
+    page src in every layer of every pool, every other page untouched,
+    beside a copy that stops at layer 0 and one that skips the last pool;
+    bad device ids copy nothing in any pool and set the error flag once a
+    call."""
+    from repro_torch.kernels.paged_attention import kernel
+    L, NB = 18, 17
+    sets = gemma_cache_sets(torch, dev, L, NB, 401)
+    for name, pools in sets.items():
+        for src, dst in ((3, 7), (12, 2)):
+            before = [p.clone() for p in pools]
+            device_ids = src == 12
+            ids = ((torch.tensor([src, dst], dtype=torch.int32,
+                                 device=dev),) if device_ids else (src, dst))
+            n0 = kernel.copy_launches
+            kernel.copy_pages(pools, *ids)
+            torch.cuda.synchronize()
+            n = kernel.copy_launches - n0
+            keep = [p for p in range(NB) if p != dst]
+
+            def mismatch(ps):
+                return max((p[:, dst].float() - b[:, src].float())
+                           .abs().max().item() for p, b in zip(ps, before))
+
+            stops = [b.clone() for b in before]
+            for x, b in zip(stops, before):
+                x[0, dst] = b[0, src]
+            skips = [b.clone() for b in before]
+            for x, b in zip(skips[:-1], before):
+                x[:, dst] = b[:, src]
+            untouched = all(torch.equal(p[:, keep], b[:, keep])
+                            for p, b in zip(pools, before))
+            judge(f"copy_pages {name} cache ({len(pools)} pools) {src} -> "
+                  f"{dst} ({'device' if device_ids else 'host'} ids)",
+                  mismatch(pools), 0.0,
+                  {"stops at layer 0": mismatch(stops),
+                   "last pool skipped": mismatch(skips)},
+                  f", other pages untouched {untouched}, {n} launch")
+            if not (untouched and n == 1):
+                raise AssertionError(f"copy_pages moved another page or "
+                                     f"took {n} launches: {name}")
+            worst["copy"] = max(worst["copy"], mismatch(pools))
+    for name, pools in sets.items():
+        before = [p.clone() for p in pools]
+        for bad in ([4, 4], [0, NB], [-1, 3]):
+            kernel.copy_pages(pools, torch.tensor(bad, dtype=torch.int32,
+                                                  device=dev))
+            if kernel.copy_page_errors(dev) != 1:
+                raise AssertionError(f"copy_pages took bad device ids {bad}")
+        if not all(torch.equal(p, b) for p, b in zip(pools, before)):
+            raise AssertionError("copy_pages wrote with bad device ids")
+        log(f"[kernel] copy_pages {name} cache: bad device ids [4, 4], "
+            f"[0, {NB}], [-1, 3] set the error flag once each and copy "
+            f"nothing in any pool")
+
+
+def phase_family_vs_plain(torch, dev):
+    """The int8 update, the read-only walk (fp and int8), the walk at
+    head_dim 128 and copy_page / copy_pages against their plain versions
+    at the main paths' shapes, and the fused update at the verify-chain
+    shapes.  Returns the worst max |kernel - plain| of each: {"int8",
+    "readonly", "copy", "verify", "d128"} ("verify": the fp update at the
+    chain shapes; int8 chains count under "int8")."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+    build_report("paged_attention")
+    build_report("copy_page")
     bf16, f32 = torch.bfloat16, torch.float32
     gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=bf16)
     granite = dict(H=32, Hkv=8, D=64, BS=16, dtype=bf16)
-    worst = {"int8": 0.0, "readonly": 0.0, "copy": 0.0, "verify": 0.0}
+    worst = {"int8": 0.0, "readonly": 0.0, "copy": 0.0, "verify": 0.0,
+             "d128": 0.0}
     # -- the fused update over int8 pools: pools bit-equal ----------------
     cases = [
         ("int8 gemma-2b decode S=1 B=4", dict(
@@ -595,6 +767,7 @@ def phase_family_vs_plain(torch, dev):
                                  f"output: {name}")
         worst["int8"] = max(worst["int8"], max_err(got[0]))
     verify_chain_cases(torch, dev, worst)
+    d128_cases(torch, dev, worst)
     # -- the read-only walk, fp and int8: pools unchanged -----------------
     cases = [
         ("gemma-2b decode S=1 B=4", dict(
@@ -694,6 +867,7 @@ def phase_family_vs_plain(torch, dev):
         raise AssertionError("copy_page wrote with bad device ids")
     log("[kernel] copy_page: bad device ids [4, 4], [0, 17], [-1, 3] set "
         "the error flag and copy nothing")
+    copy_pages_cases(torch, dev, worst)
     return worst
 
 
@@ -1140,15 +1314,17 @@ def phase_full_width_options(torch, dev, full, worst):
     (off, _, _), (on, c, m) = runs[False], runs[True]
     log(f"[full] prefix cache: hits {m['hit_tokens']} of "
         f"{m['lookup_tokens']} prompt tokens, page hits {m['page_hits']}, "
-        f"copy-on-write copies {m['cow_copies']}, launches {c}; streams "
+        f"copy-on-write copies {m['cow_copies']} (one copy launch each, "
+        f"every pool), launches {c}; streams "
         f"byte-equal to the cache off: {[a == b for a, b in zip(on, off)]}")
     if on != off:
         raise AssertionError("prefix cache: streams differ from the cache "
                              "off")
     varied("prefix cache", on)
-    if not (m["hit_tokens"] > 0 and m["cow_copies"] > 0 and c["copy"] > 0):
-        raise AssertionError("prefix cache: no hit, or no copy-on-write "
-                             "through copy_page")
+    if not (m["hit_tokens"] > 0 and m["cow_copies"] > 0
+            and c["copy"] == m["cow_copies"]):
+        raise AssertionError("prefix cache: no hit, or not one copy_pages "
+                             "launch a copy-on-write")
     out["copy"] = c["copy"]
     return out
 
@@ -1260,6 +1436,10 @@ def phase_full_width_spec_swap(torch, dev, full):
         if upd != L * eng.dispatches or upd == 0:
             raise AssertionError(f"{label}: the update kernel did not run "
                                  f"once per layer per pass")
+        if c["copy"] != m["prefix_cache"]["cow_copies"]:
+            raise AssertionError(f"{label}: {c['copy']} copy launches for "
+                                 f"{m['prefix_cache']['cow_copies']} "
+                                 f"copy-on-write copies")
         return eng, streams, m, tally, c
 
     waves = [[(row, G) for row in prompts]]
@@ -1302,9 +1482,9 @@ def phase_full_width_spec_swap(torch, dev, full):
         f"prefix hits {pc['hit_tokens']}, copy-on-write copies "
         f"{pc['cow_copies']}")
     if not (sp["drafted_tokens"] > 0 and pc["cow_copies"] > 0
-            and c["copy"] == len(eng.cache) * pc["cow_copies"]):
-        raise AssertionError(f"{label}: no draft, or no copy-on-write "
-                             f"through copy_page")
+            and c["copy"] == pc["cow_copies"]):
+        raise AssertionError(f"{label}: no draft, or not one copy_pages "
+                             f"launch a copy-on-write")
     varied(label, streams)
     near_ties(label, streams, base8, margins8, P)
     # -- swap preemption: 12 usable pages for 4 requests of 4 pages ------
@@ -1523,6 +1703,9 @@ def phase_frontends(torch, dev, full):
     if c["fp"] != L * report["dispatches"] or c["fp"] == 0:
         raise AssertionError("open loop: the update kernel did not run "
                              "once per layer per tick")
+    if c["copy"]:
+        raise AssertionError("open loop: a copy launch without the prefix "
+                             "cache")
     if ol["finished"] != len(wl):
         raise AssertionError("open loop: a request did not finish")
     got = [streams[f] for f in sorted(streams)]
@@ -1563,6 +1746,10 @@ def phase_frontends(torch, dev, full):
         if c["fp"] != L * ticks or c["fp"] == 0:
             raise AssertionError(f"{label}: the update kernel did not run "
                                  f"once per layer per replica tick")
+        cow = sum(r["prefix_cache"]["cow_copies"] for r in report["replicas"])
+        if c["copy"] != cow:
+            raise AssertionError(f"{label}: {c['copy']} copy launches for "
+                                 f"{cow} copy-on-write copies")
         got = [streams[f] for f in sorted(streams)]
         held_to(torch, dev, f"{label} vs one engine", cfg, params, reqs,
                 got, ref, BS)
@@ -1603,6 +1790,11 @@ def phase_frontends(torch, dev, full):
     if c["fp"] != L * ticks:
         raise AssertionError(f"{label}: the update kernel did not run once "
                              f"per layer per replica tick")
+    cow = sum(e.metrics()["prefix_cache"]["cow_copies"]
+              for e in rt.replicas + retired)
+    if c["copy"] != cow:
+        raise AssertionError(f"{label}: {c['copy']} copy launches for {cow} "
+                             f"copy-on-write copies")
     held_to(torch, dev, label, cfg, params, reqs, got, ref, BS)
     out[label] = dict(c, ticks=ticks, rerouted=rt.rerouted_total,
                       migrated_pages=rt.migrated_pages)
@@ -1701,13 +1893,32 @@ def bound(torch, c, *, fresh=True, row_bytes=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(torch, dev):
-    from repro_torch.kernels.paged_attention import kernel, ref
+# phase 6 and 6b, glm4-9b's decode at head_dim 128: 4 requests, 32 heads
+# over 2 kv heads, bf16, block 16
+GLM4_DECODE = dict(B=4, S=1, starts=[48, 52, 60, 63], ns=[1, 1, 1, 1], H=32,
+                   Hkv=2, D=128, BS=16, dtype="bfloat16")
+
+
+def timing_shapes(torch, kernel):
+    """Phase 6's shapes: gemma-2b decode and prefill, and glm4-9b decode
+    at head_dim 128 where the tree's walk admits it (a parent tree timed
+    by ``--timing-only --src`` may not)."""
     gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=torch.bfloat16)
     shapes = {"decode": dict(B=4, S=1, starts=[48, 52, 60, 63],
                              ns=[1, 1, 1, 1], **gemma),
               "prefill": dict(B=4, S=16, starts=[16, 0, 32, 48],
                               ns=[16, 16, 16, 16], **gemma)}
+    if 128 in kernel.HEAD_DIMS:
+        shapes["decode D128"] = dict(GLM4_DECODE, dtype=torch.bfloat16)
+    else:
+        log("[time] this tree's walk does not admit head_dim 128: no D 128 "
+            "rows")
+    return shapes
+
+
+def phase_timing(torch, dev):
+    from repro_torch.kernels.paged_attention import kernel, ref
+    shapes = timing_shapes(torch, kernel)
     out = {}
     for label, shape in shapes.items():
         c = make_case(torch, dev, 7, **shape)
@@ -1726,21 +1937,23 @@ def phase_timing(torch, dev):
         bound_ms, bound_by = bound(torch, c)
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[time] {label} {tuple(c['q'].shape)} bf16, CUDA events per "
-            f"call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        log(f"[time] {label} {tuple(c['q'].shape)} bf16, kv heads "
+            f"{c['kp'].shape[2]}, CUDA events per call: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by})")
     return out
 
 
 def library_sdpa(torch, c, kp, vp, ks=None, vs=None, gather=False):
     """The library yardstick of a walk: one ``scaled_dot_product_attention``
     call over the request's pages, gathered (and dequantized to q's dtype
-    for int8 pools) beforehand, outside the timed call; with ``gather``,
-    the gather and the dequantize inside the timed call as well."""
+    for int8 pools, and with GQA repeated to every query head) beforehand,
+    outside the timed call; with ``gather``, the gather, the dequantize and
+    the repeat inside the timed call as well."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ref
     B, S, H, D = c["q"].shape
-    BS = kp.shape[1]
+    BS, Hkv = kp.shape[1], kp.shape[2]
     L = c["live"] * BS
     tab = c["tables"][:, :c["live"]].long()
     mask = (torch.arange(L, device=kp.device)[None, None, :]
@@ -1753,9 +1966,12 @@ def library_sdpa(torch, c, kp, vp, ks=None, vs=None, gather=False):
                 vp[tab], vs[tab])
         else:
             k, v = kp[tab], vp[tab]
-        k = k.to(c["q"].dtype).reshape(B, L, 1, D).transpose(1, 2)
-        v = v.to(c["q"].dtype).reshape(B, L, 1, D).transpose(1, 2)
-        return k.expand(B, H, L, D), v.expand(B, H, L, D)   # MQA: one head
+        k = k.to(c["q"].dtype).reshape(B, L, Hkv, D).transpose(1, 2)
+        v = v.to(c["q"].dtype).reshape(B, L, Hkv, D).transpose(1, 2)
+        if Hkv == 1:                                       # MQA: one head
+            return k.expand(B, H, L, D), v.expand(B, H, L, D)
+        return (k.repeat_interleave(H // Hkv, dim=1),       # GQA
+                v.repeat_interleave(H // Hkv, dim=1))
 
     if gather:
         return lambda: F.scaled_dot_product_attention(qt, *pages(),
@@ -1772,11 +1988,7 @@ def phase_family_timing(torch, dev):
     gathered and dequantized beforehand, and with the gather and the
     dequantize timed too)."""
     from repro_torch.kernels.paged_attention import kernel, ref
-    gemma = dict(H=8, Hkv=1, D=256, BS=16, dtype=torch.bfloat16)
-    shapes = {"decode": dict(B=4, S=1, starts=[48, 52, 60, 63],
-                             ns=[1, 1, 1, 1], **gemma),
-              "prefill": dict(B=4, S=16, starts=[16, 0, 32, 48],
-                              ns=[16, 16, 16, 16], **gemma)}
+    shapes = timing_shapes(torch, kernel)
     out = {}
     for label, shape in shapes.items():
         c = quantized(torch, make_case(torch, dev, 7, **shape))
@@ -1806,32 +2018,34 @@ def phase_family_timing(torch, dev):
             f"{row['library_ms']:.4f} ms, gather + dequantize + sdpa "
             f"{row['library_gather_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
-    c = quantized(torch, make_case(torch, dev, 8, **shapes["decode"]))
-    for quant in (False, True):
-        kw = dict(k_scale=c["ks"], v_scale=c["vs"]) if quant else {}
-        kp, vp = (c["kq"], c["vq"]) if quant else (c["kp"], c["vp"])
+    for dec in [d for d in ("decode", "decode D128") if d in shapes]:
+        c = quantized(torch, make_case(torch, dev, 8, **shapes[dec]))
+        for quant in (False, True):
+            kw = dict(k_scale=c["ks"], v_scale=c["vs"]) if quant else {}
+            kp, vp = (c["kq"], c["vq"]) if quant else (c["kp"], c["vp"])
 
-        def run(fn):
-            return lambda: fn(c["q"], kp, vp, c["tables"], c["pos"],
-                              window=FULL, softcap=0.0,
-                              max_live_blocks=c["live"], **kw)
+            def run(fn):
+                return lambda: fn(c["q"], kp, vp, c["tables"], c["pos"],
+                                  window=FULL, softcap=0.0,
+                                  max_live_blocks=c["live"], **kw)
 
-        tag = f"read-only {'int8' if quant else 'fp'}"
-        row = dict(ms=card_ms(torch, run(kernel.paged_attention), label=tag),
-                   plain_ms=card_ms(torch, run(ref.paged_attention),
-                                    label=tag),
-                   library_ms=card_ms(torch, library_sdpa(
-                       torch, c, kp, vp, *kw.values()), label=tag))
-        row["bound_ms"], row["bound_by"] = bound(
-            torch, c, fresh=False,
-            row_bytes=shapes["decode"]["D"] + 4 if quant else None)
-        label = "int8" if quant else "fp"
-        out[f"read-only {label}"] = row
-        log(f"[time] read-only walk, {label} pools, decode "
-            f"{tuple(c['q'].shape)} bf16 q, CUDA events per call: kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']})")
+            tag = f"read-only {'int8' if quant else 'fp'}" + dec[6:]
+            row = dict(ms=card_ms(torch, run(kernel.paged_attention),
+                                  label=tag),
+                       plain_ms=card_ms(torch, run(ref.paged_attention),
+                                        label=tag),
+                       library_ms=card_ms(torch, library_sdpa(
+                           torch, c, kp, vp, *kw.values()), label=tag))
+            row["bound_ms"], row["bound_by"] = bound(
+                torch, c, fresh=False,
+                row_bytes=shapes[dec]["D"] + 4 if quant else None)
+            out[tag] = row
+            log(f"[time] read-only walk, {'int8' if quant else 'fp'} pools, "
+                f"{dec} {tuple(c['q'].shape)} bf16 q, kv heads "
+                f"{kp.shape[2]}, CUDA events per call: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']})")
     # copy_page on gemma-2b's K pool at batch 4 (18 layers, 17 pages)
     g = torch.Generator(device=dev).manual_seed(9)
     pool = torch.randn((18, 17, 16, 1, 256), generator=g,
@@ -1852,6 +2066,67 @@ def phase_family_timing(torch, dev):
         f"call: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"index_copy_ {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.6f} ms (bytes)")
+    out.update(cow_timing(torch, dev))
+    return out
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds to issue one call of ``fn``: the median over ``n``
+    calls in a row, the card left to drain after them."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * sorted(ts)[n // 2]
+
+
+def cow_timing(torch, dev):
+    """One copy-on-write over gemma-2b's whole cache at batch 4 (18 layers,
+    17 pages), fp and int8 pages: the engine's own ``_copy_page`` (in a
+    parent tree timed by ``--timing-only --src``, whatever that tree's
+    engine does), its launches, device ms (CUDA events) and host us per
+    COW, beside the bound (each pool's page read and written once in every
+    layer), the plain version (``ref.copy_page`` on each pool) and
+    ``index_copy_`` on each pool (one call a pool, timed together)."""
+    from types import SimpleNamespace
+    from repro_torch.kernels.paged_attention import kernel, ref
+    from repro_torch.serving import PagedServingEngine
+    out = {}
+    dst = torch.tensor([7], device=dev)
+    for name, pools in gemma_cache_sets(torch, dev, 18, 17, 10).items():
+        eng = SimpleNamespace(cache=dict(zip(("k", "v", "k_scale",
+                                              "v_scale"), pools)))
+
+        def cow():
+            PagedServingEngine._copy_page(eng, 3, 7)
+
+        n0 = kernel.copy_launches
+        cow()
+        launches = kernel.copy_launches - n0
+        nbytes = sum(2 * p[:, 0].numel() * p.element_size() for p in pools)
+        tag = f"copy per COW {name}"
+        row = dict(ms=card_ms(torch, cow, label=tag),
+                   plain_ms=card_ms(torch, lambda: [ref.copy_page(p, 3, 7)
+                                                    for p in pools],
+                                    label=tag),
+                   library_ms=card_ms(torch, lambda: [
+                       p.index_copy_(1, dst, p[:, 3:4]) for p in pools],
+                       label=tag),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   launches_per_cow=launches, host_us=host_us(torch, cow),
+                   pools=len(pools), bytes=nbytes)
+        out[tag] = row
+        log(f"[time] copy-on-write over gemma-2b's {name} cache "
+            f"({len(pools)} pools, {nbytes} bytes moved), the engine's "
+            f"_copy_page: {launches} launches, kernel {row['ms']:.4f} ms, "
+            f"host {row['host_us']:.1f} us a COW, plain "
+            f"{row['plain_ms']:.4f} ms, index_copy_ on each pool "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"(bytes)")
     return out
 
 
@@ -3257,16 +3532,23 @@ def main():
     report = {"kernels": [
         entry("paged_attention_update", KERNEL_SOURCE, KERNEL_REPLACES,
               fp_launches, max(max_err, family_err["verify"]),
-              dict(dec, **paths("fp"))),
+              dict(dec, d128=timing["decode D128"],
+                   max_abs_err_d128=family_err["d128"], **paths("fp"))),
         entry("paged_attention_update_int8", KERNEL_SOURCE, INT8_REPLACES,
               family_launches["int8"], family_err["int8"],
-              dict(family_timing["int8 decode"], **paths("int8"))),
+              dict(family_timing["int8 decode"],
+                   d128=family_timing["int8 decode D128"], **paths("int8"))),
         entry("paged_attention", KERNEL_SOURCE, READONLY_REPLACES,
               family_launches["readonly"], family_err["readonly"],
-              family_timing["read-only fp"]),
+              dict(family_timing["read-only fp"],
+                   d128=family_timing["read-only fp D128"])),
+        # per copy-on-write over gemma-2b's whole cache (fp pages; int8
+        # pages and the one-pool call beside it)
         entry("copy_page", COPY_SOURCE, COPY_REPLACES,
               family_launches["copy"], family_err["copy"],
-              dict(family_timing["copy_page"], **paths("copy"))),
+              dict(family_timing["copy per COW fp"],
+                   int8=family_timing["copy per COW int8"],
+                   single_pool=family_timing["copy_page"], **paths("copy"))),
         entry("flash_attention_pallas", FLASH_SOURCE,
               FLASH_REPLACES["fwd"], train["launches"]["fwd"],
               flash_err["fwd"], flash_time[("(a)", "fwd")]),

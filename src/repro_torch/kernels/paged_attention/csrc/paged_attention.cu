@@ -748,6 +748,7 @@ cudaError_t launch_d(int D, const void* q, const void* k_new,
   switch (D) {
     case 16: return launch<T, 16, kQuant, kFuse>(PA_ARGS);
     case 64: return launch<T, 64, kQuant, kFuse>(PA_ARGS);
+    case 128: return launch<T, 128, kQuant, kFuse>(PA_ARGS);
     case 256: return launch<T, 256, kQuant, kFuse>(PA_ARGS);
     default: return cudaErrorInvalidValue;
   }

@@ -7,8 +7,10 @@ family in ``repro/kernels/paged_attention/kernel.py``:
     in one launch;
   * ``paged_attention_pallas`` -> :func:`paged_attention`: the same walk,
     read-only;
-  * ``copy_page_pallas`` -> :func:`copy_page`: copy one page over another
-    in every layer of a stacked pool (copy-on-write).
+  * ``copy_page_pallas`` -> :func:`copy_pages`: copy one page over
+    another in every layer of up to ``MAX_POOLS`` stacked pools (a
+    copy-on-write over the whole cache) in one launch; :func:`copy_page`
+    is its one-pool case.
 
 The walks are one kernel (``csrc/paged_attention.cu``, whose header note
 gives the design) with two compile-time switches, the scatter (with the
@@ -27,25 +29,26 @@ its path went through the kernels; the caller resets and reads them:
     launches           the fused update over fp pools
     int8_launches      the fused update over int8 pools
     readonly_launches  the read-only walk, fp or int8 pools
-    copy_launches      copy_page
+    copy_launches      copy_pages (and copy_page, its one-pool case)
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import ref as _ref
 
-HEAD_DIMS = (16, 64, 256)
+HEAD_DIMS = (16, 64, 128, 256)
 MAX_BLOCK_SIZE = 64          # softmax: a warp's two keys a lane
 Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # q, out, fp pools
 ROWS_PER_TILE = 16           # query rows a block: kRows in the kernel
 KEYS_PER_SPLIT = 16          # a split walks max(1, 16 // block_size) pages
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_YZ = 65535
+MAX_POOLS = 4                # copy_pages: pools a launch (kMaxPools)
 
 
 class WalkPlan(NamedTuple):
@@ -128,9 +131,9 @@ def _counter_buffer(device: torch.device, stream: int, n: int):
 def _copy_fn():
     if "copy" not in _fns:
         lib = _build.library("copy_page")
-        fn = lib.copy_page_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn = lib.copy_pages_launch
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         lib.copy_page_error_string.argtypes = [ctypes.c_int]
         lib.copy_page_error_string.restype = ctypes.c_char_p
@@ -307,62 +310,87 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-def copy_page(pool: torch.Tensor, src: Union[int, torch.Tensor],
-              dst: Optional[int] = None) -> torch.Tensor:
-    """Copy page ``src`` over page ``dst`` in every layer of a contiguous
-    stacked (L, NB, ...) pool of any dtype, in place; returns the pool.
+def copy_pages(pools: Sequence[torch.Tensor], src: Union[int, torch.Tensor],
+               dst: Optional[int] = None) -> List[torch.Tensor]:
+    """Copy page ``src`` over page ``dst`` in every layer of every pool, in
+    place, in one launch; returns the pools as a list.
 
-    The ids are host ints (``copy_page(pool, 3, 7)``), checked here and
-    raising ValueError for ``src == dst`` or an id outside [0, NB); or one
-    int32 tensor ``{src, dst}`` on the pool's device
-    (``copy_page(pool, ids)``), read by the kernel with no host sync.  The
-    kernel checks those itself: bad ids copy nothing and set the device's
-    error flag, which :func:`copy_page_errors` reads.
+    ``pools``: 1 to ``MAX_POOLS`` contiguous stacked (L, NB, ...) pools on
+    one device that share L and NB and may differ in dtype and page bytes
+    (a cache's K and V pools, and with int8 pages their scale pools).  The
+    ids are host ints (``copy_pages(pools, 3, 7)``), checked here and
+    raising ValueError for ``src == dst`` or an id outside [0, NB), then
+    passed to the kernel by value; or one int32 tensor ``{src, dst}`` on
+    the pools' device (``copy_pages(pools, ids)``), read by the kernel with
+    no host sync.  The kernel checks those itself: bad ids copy nothing in
+    any pool and set the device's error flag, which
+    :func:`copy_page_errors` reads.
     """
     global copy_launches
+    pools = list(pools)
+    if not 1 <= len(pools) <= MAX_POOLS:
+        raise ValueError(f"copy_pages takes 1 to {MAX_POOLS} pools, got "
+                         f"{len(pools)}")
+    dev = pools[0].device
+    L, NB = pools[0].shape[:2] if pools[0].dim() >= 2 else (0, 0)
+    for pool in pools:
+        if pool.dim() < 2 or pool.shape[0] != L or pool.shape[1] != NB:
+            raise ValueError(f"pools must share (L, NB): "
+                             f"{[tuple(p.shape) for p in pools]}")
+        if pool.device != dev:
+            raise ValueError(f"pools on {pool.device} and {dev}")
     if dst is None:
         ids = src
         if not (isinstance(ids, torch.Tensor) and ids.dtype == torch.int32
                 and ids.shape == (2,)):
             raise TypeError("ids must be an int32 tensor {src, dst}")
     else:
-        NB = pool.shape[1] if pool.dim() >= 2 else 0
         src, dst = int(src), int(dst)
         if src == dst or not (0 <= src < NB and 0 <= dst < NB):
             raise ValueError(f"copy_page: src {src}, dst {dst} must be two "
                              f"different pages of [0, {NB})")
         ids = None
-    if pool.device.type == "cpu":
+    if dev.type == "cpu":
         if ids is not None:
             src, dst = (int(i) for i in ids)
-            if src == dst or not (0 <= src < pool.shape[1]
-                                  and 0 <= dst < pool.shape[1]):
+            if src == dst or not (0 <= src < NB and 0 <= dst < NB):
                 raise ValueError(f"copy_page: bad page ids {src}, {dst}")
-        return _ref.copy_page(pool, src, dst)
-    if pool.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pool.device}")
-    if pool.dim() < 3 or not pool.is_contiguous():
-        raise ValueError("pool must be a contiguous (L, NB, ...) tensor")
-    if ids is None:
-        # pinned, so the upload waits for nothing already on the stream
-        ids = torch.tensor([src, dst], dtype=torch.int32,
-                           pin_memory=True).to(pool.device, non_blocking=True)
-    elif ids.device != pool.device:
-        raise ValueError(f"ids are on {ids.device}, the pool on "
-                         f"{pool.device}")
-    L, NB = pool.shape[:2]
-    page_bytes = pool[0, 0].numel() * pool.element_size()
-    if pool.numel() == 0:
-        return pool
+        return _ref.copy_pages(pools, src, dst)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for pool in pools:
+        if pool.dim() < 3 or not pool.is_contiguous():
+            raise ValueError("pools must be contiguous (L, NB, ...) tensors")
+    if ids is not None:
+        if ids.device != dev:
+            raise ValueError(f"ids are on {ids.device}, the pools on {dev}")
+        ids = ids.contiguous()
+    if pools[0].numel() == 0:
+        return pools
+    n = len(pools)
+    bases = (ctypes.c_void_p * n)(*(p.data_ptr() for p in pools))
+    page_bytes = (ctypes.c_longlong * n)(      # contiguous: numel / (L NB)
+        *(p.numel() // (L * NB) * p.element_size() for p in pools))
     fn, errstr = _copy_fn()
-    err = fn(pool.data_ptr(), ids.contiguous().data_ptr(),
-             _copy_error_flag(pool.device).data_ptr(), L, NB, page_bytes,
-             torch.cuda.current_stream(pool.device).cuda_stream)
+    err = fn(bases, page_bytes, n, L, NB,
+             -1 if ids is not None else src, -1 if ids is not None else dst,
+             None if ids is None else ids.data_ptr(),
+             _copy_error_flag(dev).data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"copy_page launch failed: "
+        raise RuntimeError(f"copy_pages launch failed: "
                            f"{errstr(err).decode()} ({err})")
     copy_launches += 1
-    return pool
+    return pools
+
+
+def copy_page(pool: torch.Tensor, src: Union[int, torch.Tensor],
+              dst: Optional[int] = None) -> torch.Tensor:
+    """Copy page ``src`` over page ``dst`` in every layer of a contiguous
+    stacked (L, NB, ...) pool of any dtype, in place; returns the pool.
+    The one-pool case of :func:`copy_pages`: the same ids, checks and
+    kernel, one launch."""
+    return copy_pages([pool], src, dst)[0]
 
 
 def _copy_error_flag(device: torch.device) -> torch.Tensor:
@@ -374,7 +402,7 @@ def _copy_error_flag(device: torch.device) -> torch.Tensor:
 
 
 def copy_page_errors(device: torch.device) -> int:
-    """How many launches of :func:`copy_page` on ``device`` were given bad
+    """How many launches of :func:`copy_pages` on ``device`` were given bad
     device-side ids since the last call (counted as 0 or 1: the flag is
     set, not added to), then clears the flag.  Synchronises with the
     device."""

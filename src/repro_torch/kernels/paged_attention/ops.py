@@ -13,7 +13,8 @@ in place.
     paged_attention_unified(q, k_new, v_new, k_pool, v_pool, tables,
                             positions, row_map, ...)
                            -> (out, k_pool, v_pool)   # flat ragged tick
-    copy_page(pool, src, dst) -> pool                 # COW primitive
+    copy_pages(pools, src, dst) -> pools              # COW, one launch
+    copy_page(pool, src, dst) -> pool                 # its one-pool case
 
 With int8 pools (``kv_dtype="int8"``) every attention op also takes
 ``k_scale=``/``v_scale=`` ((NB, BS, Hkv) fp32 per-row scale pools) and
@@ -22,7 +23,7 @@ returns them after the pools: the fresh rows are quantized by one recipe
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -49,12 +50,21 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         k_scale=k_scale, v_scale=v_scale)
 
 
+def copy_pages(pools: Sequence[torch.Tensor], src,
+               dst=None) -> List[torch.Tensor]:
+    """Copy one physical page across all layers of every stacked (L, NB,
+    ...) pool of a cache, in place, in one launch: the engine's
+    copy-on-write primitive.  The pools share L and NB and may differ in
+    dtype (K, V and the int8 pages' scale pools), at most
+    ``kernel.MAX_POOLS``.  ``src``/``dst`` are host ints, or ``src`` is one
+    int32 device tensor {src, dst} and ``dst`` is None (see
+    ``kernel.copy_pages``)."""
+    return _kernel.copy_pages(pools, src, dst)
+
+
 def copy_page(pool: torch.Tensor, src, dst=None) -> torch.Tensor:
-    """Copy one physical page across all layers of a stacked (L, NB, ...)
-    pool, in place: the engine's copy-on-write primitive.  ``src``/``dst``
-    are host ints, or ``src`` is one int32 device tensor {src, dst} and
-    ``dst`` is None (see ``kernel.copy_page``).  Any dtype, so the int8
-    pools' scale pools go through it too."""
+    """:func:`copy_pages` on one pool: copy one physical page across all
+    layers of a stacked (L, NB, ...) pool of any dtype, in place."""
     return _kernel.copy_page(pool, src, dst)
 
 

@@ -29,7 +29,7 @@ out bit-equal on every path; the walk dequantizes in fp32.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -67,6 +67,14 @@ def copy_page(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
     Returns the pool."""
     pool[:, dst] = pool[:, src]
     return pool
+
+
+def copy_pages(pools: Sequence[torch.Tensor], src: int,
+               dst: int) -> List[torch.Tensor]:
+    """:func:`copy_page` on each pool in turn (a copy-on-write over a whole
+    cache: K, V and, with int8 pages, their scale pools).  Returns the
+    pools as a list."""
+    return [copy_page(pool, src, dst) for pool in pools]
 
 
 def _scatter_rows(pool: torch.Tensor, rows: torch.Tensor, flat: torch.Tensor,

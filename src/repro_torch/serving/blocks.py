@@ -27,7 +27,7 @@ its table moves hashed pages to the cache instead of the free list, so the
 next request with the same prompt prefix attaches them by incref and skips
 re-prefilling.  A request about to *write* into a shared page must
 copy-on-write first (:meth:`BlockTable.cow` after the engine's on-device
-``ops.copy_page``); pages are append-only, so only the tail page of a
+``ops.copy_pages``); pages are append-only, so only the tail page of a
 forked prefix can ever need it.
 
 Physical page 0 is reserved as the *null block*: padded prefill rows and
@@ -465,7 +465,7 @@ class BlockTable:
     def cow(self, idx: int, new_blk: int) -> None:
         """Swap shared page ``blocks[idx]`` for the private copy
         ``new_blk`` (the engine has already copied the page on-device via
-        ``ops.copy_page``).  The old page loses this table's reference —
+        ``ops.copy_pages``).  The old page loses this table's reference —
         dropping back to the cache or to its other holders.  ``shared``
         shrinks to ``idx``: a caller COWing several pages of one write
         range must walk against the *original* count (the engine

@@ -18,7 +18,7 @@ What is ported:
   * int8 KV pools (``kv_dtype="int8"``, DESIGN.md §13);
   * the prefix cache (``prefix_cache=True``, DESIGN.md §9): content-hashed
     full pages, shared by incref at admission, copied on the device
-    (``ops.copy_page``) before a request writes into a shared page; with
+    (``ops.copy_pages``) before a request writes into a shared page; with
     ``host_cache_pages`` evicted pages spill to a host tier and a later
     prefix match restores them;
   * self-speculative decoding (``speculate=True``, DESIGN.md §11): n-gram
@@ -115,8 +115,8 @@ class PagedServingEngine:
             released pages park in a zero-ref LRU; admission attaches the
             longest cached prefix of a prompt by incref and prefills only
             the tail.  A write into a shared page first copies it on the
-            device (``ops.copy_page`` over every pool of the cache).
-            Streams are byte-identical with the cache on or off.
+            device (``ops.copy_pages``: every pool of the cache in one
+            launch).  Streams are byte-identical with the cache on or off.
         speculate: self-speculative decoding (DESIGN.md §11).  Each
             decoding request keeps an n-gram index over its prompt and
             accepted tokens (:class:`~repro_torch.serving.speculative
@@ -769,9 +769,11 @@ class PagedServingEngine:
     @torch.no_grad()
     def _copy_page(self, src: int, dst: int) -> None:
         """The COW step: page ``src`` over ``dst`` in every pool of the
-        cache (K, V and, with int8 pages, their scale pools)."""
-        for pool in self.cache.values():
-            paged_ops.copy_page(pool, src, dst)
+        cache (K, V and, with int8 pages, their scale pools), in one
+        launch.  One COW a launch, in stream order: the page a later COW
+        of the same step writes may be this one's ``src``, freed by
+        ``tab.cow`` and allocated again."""
+        paged_ops.copy_pages(list(self.cache.values()), src, dst)
 
     def _grow_decode(self, slot: int, draft: int = 0) -> int:
         """Room for a decode chain of ``1 + draft`` tokens: grow the table

@@ -279,6 +279,136 @@ def test_cuda_copy_page_device_ids_checked(cuda_device):
         pa_kernel.copy_page(pool, 2, 2)
 
 
+def _gemma_cache(dev, kind, L=4, NB=17, seed=6):
+    """A cache set at gemma-2b's page layout (block 16, one kv head of
+    256), L cut from 18: bf16 {K, V}, or int8 {K, V, K-scale, V-scale}
+    quantized by the one recipe; in the engine's order."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v = (torch.randn((L, NB, 16, 1, 256), generator=g, device=dev)
+            for _ in range(2))
+    if kind == "fp":
+        return [k.to(torch.bfloat16), v.to(torch.bfloat16)]
+    (kq, ks), (vq, vs) = pa_ref.quantize_rows(k), pa_ref.quantize_rows(v)
+    return [kq, vq, ks.contiguous(), vs.contiguous()]
+
+
+@pytest.mark.parametrize("kind", ["fp", "int8"])
+def test_cuda_copy_pages_bit_equal(cuda_device, kind):
+    """copy_pages over a cache set at gemma-2b's page layout: in every pool
+    page dst equals page src bit for bit in every layer, every other page
+    is untouched, equal to the plain version's; one launch a call, host
+    ids and device ids."""
+    pools = _gemma_cache(cuda_device, kind)
+    NB = pools[0].shape[1]
+    for ids in ((3, 7), (torch.tensor([12, 2], dtype=torch.int32,
+                                      device=cuda_device),)):
+        before = [p.clone() for p in pools]
+        src, dst = ids if len(ids) == 2 else ids[0].tolist()
+        want = pa_ref.copy_pages([p.clone() for p in pools], src, dst)
+        n = pa_kernel.copy_launches
+        got = pa_kernel.copy_pages(pools, *ids)
+        torch.cuda.synchronize()
+        assert pa_kernel.copy_launches == n + 1
+        assert all(g is p for g, p in zip(got, pools))
+        keep = [p for p in range(NB) if p != dst]
+        for p, b, w in zip(pools, before, want):
+            assert torch.equal(p, w)
+            assert torch.equal(p[:, dst], b[:, src])
+            assert torch.equal(p[:, keep], b[:, keep])
+    assert pa_kernel.copy_page_errors(cuda_device) == 0
+
+
+def test_cuda_copy_pages_bad_device_ids(cuda_device):
+    """Bad device ids copy nothing in any pool of an int8 cache set and set
+    the error flag, once a call; host ids are checked on the host."""
+    pools = _gemma_cache(cuda_device, "int8", L=2)
+    before = [p.clone() for p in pools]
+    NB = pools[0].shape[1]
+    for bad in ([4, 4], [0, NB], [-1, 3]):
+        n = pa_kernel.copy_launches
+        pa_kernel.copy_pages(pools, torch.tensor(bad, dtype=torch.int32,
+                                                 device=cuda_device))
+        assert pa_kernel.copy_launches == n + 1
+        assert pa_kernel.copy_page_errors(cuda_device) == 1
+    assert all(torch.equal(p, b) for p, b in zip(pools, before))
+    assert pa_kernel.copy_page_errors(cuda_device) == 0
+    with pytest.raises(ValueError):
+        pa_kernel.copy_pages(pools, 2, NB)
+    with pytest.raises(ValueError):
+        pa_kernel.copy_pages(pools + [pools[0]], 1, 2)
+
+
+# glm4-9b decode (32 heads over 2 kv heads), olmoe-1b-7b's prefill chunk
+# crossing pages (16 heads, 16 kv heads), grok-1-314b's GQA (48 over 8)
+# with softcap 30: head_dim 128, bf16, block 16, several splits a request
+D128_CASES = {
+    "glm4_9b_decode": (dict(S=1, filled=[40, 47, 33, 63], ns=[1, 1, 1, 1],
+                            Hkv=2, G=16, BS=16, MB=6, D=128), 0.0),
+    "olmoe_prefill": (dict(S=16, filled=[8, 20, 0], ns=[16, 16, 11],
+                           Hkv=16, G=1, BS=16, MB=4, D=128), 0.0),
+    "grok_softcap": (dict(S=2, filled=[30, 55, 4], ns=[2, 1, 2], Hkv=8, G=6,
+                          BS=16, MB=6, D=128), 30.0),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("case", list(D128_CASES))
+def test_cuda_walk_d128_matches_plain(cuda_device, case, quant):
+    """The walk at head_dim 128, split over pages: the fused update (fp and
+    int8 pools) and the read-only walk against the plain versions, live
+    rows within the bf16 tolerance, every output finite, the update's
+    pools (and scale pools) bit-equal, the read-only walk's untouched; a
+    walk that skips the scatter reads above the tolerance.  With int8
+    pools the outputs are held to the plain version in the TPU kernel's
+    precision (``repro/kernels/paged_attention/kernel.py:114-139``
+    dequantizes the pages into fp32 and keeps p in fp32, as this kernel
+    does): the plain version on fp32 q and fresh rows.  On q's bf16 it
+    rounds the dequantized pages and p to bf16, and at the grok shape it
+    lands 2 bf16 ulps (0.03125, on an H100) from the kernel, further from
+    the fp32 result than the kernel is."""
+    shape, softcap = D128_CASES[case]
+    tol = 3e-2
+    c = make_case(40, **shape)
+    t = _on(cuda_device, c, torch.bfloat16)
+    kp, vp, kw = t["kp"], t["vp"], {}
+    up = {k: t[k].float() if quant else t[k] for k in ("q", "kn", "vn")}
+    if quant:
+        kp, vp, ks, vs = _int8_pools(cuda_device, c, 7)
+        kw = dict(k_scale=ks, v_scale=vs)
+    args = dict(window=FULL, softcap=softcap, max_live_blocks=c["live"])
+    assert pa_kernel.walk_plan(len(shape["filled"]), shape["S"], shape["G"],
+                               shape["Hkv"], 128, 16, c["live"],
+                               shape["MB"]).n_split > 1
+    mask = torch.from_numpy(c["pos"] >= 0).to(cuda_device)
+    res = {}
+    for name, fn in (("plain", pa_ref.unified_attention_update),
+                     ("kernel", pa_kernel.paged_attention_update)):
+        res[name] = fn(t["q"], t["kn"], t["vn"], kp.clone(), vp.clone(),
+                       t["tables"], t["pos"], **args,
+                       **{k: v.clone() for k, v in kw.items()})
+    want = pa_ref.unified_attention_update(
+        up["q"], up["kn"], up["vn"], kp.clone(), vp.clone(), t["tables"],
+        t["pos"], **args, **{k: v.clone() for k, v in kw.items()})[0]
+    before = [x.clone() for x in (kp, vp, *kw.values())]
+    n = pa_kernel.readonly_launches
+    ro = pa_kernel.paged_attention(t["q"], kp, vp, t["tables"], t["pos"],
+                                   **args, **kw)
+    ro_want = pa_ref.paged_attention(up["q"], kp, vp, t["tables"],
+                                     t["pos"], **args, **kw)
+    torch.cuda.synchronize()
+    want = want.float()
+    assert (res["kernel"][0].float() - want)[mask].abs().max() <= tol
+    assert (ro.float() - ro_want.float())[mask].abs().max() <= tol
+    assert (ro_want.float() - want)[mask].abs().max() > tol
+    assert torch.isfinite(res["kernel"][0].float()).all()
+    assert torch.isfinite(ro.float()).all()
+    assert pa_kernel.readonly_launches == n + 1
+    for a, b in zip(res["kernel"][1:], res["plain"][1:]):
+        assert torch.equal(a[1:], b[1:])
+    for x, y in zip((kp, vp, *kw.values()), before):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
                                 dict(prefix_cache=True),
                                 dict(unified=False)],
@@ -324,7 +454,8 @@ def test_cuda_engine_options_token_exact(cuda_device, kw):
         assert counts[:2] == [per_pass, 0]
     if "prefix_cache" in kw:
         assert eng.metrics()["prefix_cache"]["cow_copies"] > 0
-        assert counts[2] == 2 * eng.metrics()["prefix_cache"]["cow_copies"]
+        # one launch a copy-on-write, over every pool of the cache
+        assert counts[2] == eng.metrics()["prefix_cache"]["cow_copies"]
 
 
 # --- the split walk and the fused int8 quantize ------------------------------

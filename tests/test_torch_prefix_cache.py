@@ -210,17 +210,18 @@ def test_int8_pages_cow_carries_scales(setup):
 
 
 def test_copy_page_runs_through_the_op_on_every_pool(setup, monkeypatch):
-    """The engine's COW goes through ``ops.copy_page`` once per pool of the
-    cache dict: K and V, plus both scale pools with int8 pages."""
+    """The engine's COW goes through ``ops.copy_pages`` once per COW, over
+    every pool of the cache dict in its order: K and V, plus both scale
+    pools with int8 pages (one launch a COW on the card)."""
     _, _, cfg, params = setup
     calls = []
-    real = pa_kernel.copy_page
+    real = pa_kernel.copy_pages
 
-    def spy(pool, src, dst=None):
-        calls.append(tuple(pool.shape))
-        return real(pool, src, dst)
+    def spy(pools, src, dst=None):
+        calls.append([p.data_ptr() for p in pools])
+        return real(pools, src, dst)
 
-    monkeypatch.setattr(pa_kernel, "copy_page", spy)
+    monkeypatch.setattr(pa_kernel, "copy_pages", spy)
     prompt = np.arange(8, dtype=np.int32) + 3
     for kv, n_pools in ((None, 2), ("int8", 4)):
         calls.clear()
@@ -229,4 +230,6 @@ def test_copy_page_runs_through_the_op_on_every_pool(setup, monkeypatch):
             eng.submit(prompt.copy(), 3)
             eng.run_to_completion()
         cow = eng.metrics()["prefix_cache"]["cow_copies"]
-        assert cow >= 1 and len(calls) == n_pools * cow
+        order = [p.data_ptr() for p in eng.cache.values()]
+        assert len(order) == n_pools
+        assert cow >= 1 and calls == [order] * cow
