@@ -112,6 +112,39 @@ Phases, each raising on failure:
      preemption calls ``fail_replica``): every request re-routed with
      exactly its tokens; (d) ``--engine batch --temperature 0.7`` twice
      from the same seed: the sampled streams equal, and not greedy's;
+  5d. olmoe-1b-7b at full width (16 layers, d_model 2048, 16 heads of
+     128, 64 experts top-8, d_ff 1024, vocab 50304, bf16, random weights
+     from seed 0, output projections scaled as in phase 5) serves 4
+     requests (prompt 32, gen 32) through the unified tick, each run with
+     the launch counts set to 0 just before it.  Under the dropless
+     override (``capacity_factor`` E / k = 8, so every expert's buffer
+     holds every token): fp pages, then int8 pages, the head_dim-128
+     update launching n_layers x dispatches, the read-only walk over the
+     filled pools held to its plain version; the fp streams and
+     teacher-forced logits held as in phase 5; the prefix cache on phase
+     5b's shared prompt (streams byte-equal to the cache off, one
+     copy_pages launch a copy-on-write).  Under the published
+     ``capacity_factor`` 1.25: every request finishes, the share of
+     assignments dropped (a side call on the routing), and a decode tick
+     under ``torch.profiler``, split into the walk, the expert products
+     and the rest, beside the expert weights' bytes over HBM.  Then the
+     same weights cast to fp32 (dropless): the engine over fp32 pages,
+     the fp32 walk once per layer per tick, every stream identical to
+     fp32 ``generate``'s (or leaving it at a top-2 gap under
+     ``FP32_TIE``), teacher-forced logits within ``FP32_TF`` of the fp32
+     forward's largest; in bf16 the two paths route some tokens to other
+     experts at near-ties, which the bf16 checks must allow for;
+  5e. glm4-9b (40 layers, d 4096, 32 heads over 2 kv heads of 128,
+     partial RoPE), gemma3-4b (34 layers, d 2560, head_dim 256, a
+     1024-token window on five layers of six; prompts of 1100 tokens) and
+     grok-1-314b (full width, d 6144, 48 heads over 8 of 128, softcap 30,
+     8 experts top-2 with GeGLU, tied embeddings; depth cut from 64 to 2
+     layers, one card holding about 7) at full width, 4 requests over fp
+     pages, each with the counts set to 0 just before it: the update
+     launches once per layer per tick, the streams and teacher-forced
+     logits held as in phase 5 (grok under the dropless override), a
+     decode tick's breakdown, then 5d's fp32 checks.  Each of 5d and 5e
+     logs its seconds and peak memory and frees its weights;
   6. device time per call (the median of CUDA events around each call,
      behind a queued sleep) of the kernel, its plain version and one
      PyTorch library call (``scaled_dot_product_attention`` over
@@ -224,6 +257,7 @@ repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -253,6 +287,13 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # teacher-forced, at 4.5625 logits on an H100 80GB HBM3 at 700 W, so a
 # margin under twice that can flip.
 SPEC_TIE = 9.125
+# phases 5d and 5e, the same weights in fp32 (``held_in_fp32``): the paged
+# step's teacher-forced logits within FP32_TF of the largest fp32 forward
+# logit, and streams that leave fp32 generate's only at a top-2 gap under
+# FP32_TIE.  The two paths sum in other orders and shapes, about 1e-6
+# relative in fp32; the margins leave room for a deep stack's growth.
+FP32_TF = 1e-3
+FP32_TIE = 1e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and op/s by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -966,55 +1007,93 @@ def paged_logits(torch, dev, cfg, params, seq, P, BS, kv_dtype=None):
     return torch.cat(paged, dim=1)[..., :cfg.vocab]
 
 
+def forward_f32(torch, cfg, params, seq):
+    """fp32 logits of ``seq`` (B, T): ``M.forward`` in fp32 with each
+    layer's weights cast to fp32 only while it runs, so the fp32 copy
+    never holds more than one layer (grok-1-314b's takes 19.3 GB)."""
+    import dataclasses
+    from repro_torch.models.layers import (apply_norm, embed_tokens,
+                                           logits_from_hidden)
+    from repro_torch.models.transformer import (layer_body, layer_windows,
+                                                unstack)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        x = embed_tokens(params["embed"], seq, c32)
+        pos = torch.arange(seq.shape[1], device=seq.device)
+        windows = layer_windows(cfg)
+        for i, lp in enumerate(unstack(params["layers"], cfg.n_layers)):
+            x = layer_body(tree_map(lambda t: t.float(), lp), x, c32,
+                           positions=pos, window=int(windows[i]))
+        head = {k: tree_map(lambda t: t.float(), params[k])
+                for k in ("embed", "lm_head") if k in params}
+        return logits_from_hidden(head, apply_norm(params["final_ln"], x),
+                                  c32)[..., :cfg.vocab]
+
+
 def teacher_forced(torch, dev, cfg, params, seq, P, BS):
     """Logits of the token sequences ``seq`` (B, T) three ways: through
     the paged step on the kernel (:func:`paged_logits`), through the dense
-    bf16 ``forward`` the oracle uses, and through ``forward`` in fp32.
-    Returns max |paged - bf16|, max |paged - fp32|, max |bf16 - fp32|."""
-    import dataclasses
+    bf16 ``forward`` the oracle uses, and through ``forward`` in fp32
+    (:func:`forward_f32`).  Returns max |paged - bf16|, max |paged -
+    fp32|, max |bf16 - fp32|."""
     from repro_torch.models import model as M
     from repro_torch.models.layers import logits_from_hidden
     paged = paged_logits(torch, dev, cfg, params, seq, P, BS)
-
-    def dense(c, p):
-        return logits_from_hidden(p, M.forward(c, p, {"tokens": seq}),
-                                  c).float()[..., :cfg.vocab]
-
-    bf16 = dense(cfg, params)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = tree_map(lambda t: t.float(), params)
-    f32 = dense(cfg32, p32)
-    del p32
+    with torch.no_grad():
+        bf16 = logits_from_hidden(params, M.forward(
+            cfg, params, {"tokens": seq}), cfg).float()[..., :cfg.vocab]
+    f32 = forward_f32(torch, cfg, params, seq)
     return ((paged - bf16).abs().max().item(),
             (paged - f32).abs().max().item(),
             (bf16 - f32).abs().max().item())
 
 
 def tick_breakdown(torch, cfg, params, prompts, G, kw, ticks=8, label=""):
-    """Wall and device busy time per decode tick (4 requests decoding),
-    the launches on the card per tick, and the kernels that take the most
-    device time.  Returns {wall_ms, busy_ms, launches}."""
+    """Wall and device busy time per decode tick (4 requests decoding,
+    after at least 4 ticks and the whole prefill), the launches on the
+    card per tick, that busy time split into the paged walk, the expert
+    products (``aten::bmm``, the MoE block's only batched product) and
+    the rest, and the kernels that take the most device time.  Returns
+    the numbers in ms."""
     from repro_torch.serving import PagedServingEngine
     eng = PagedServingEngine(cfg, params, **kw)
     for row in prompts:
         eng.submit(row, G)
-    for _ in range(4):                 # prefill and the first decode ticks
+    n = 0
+    while n < 4 or any(ph != "decode" for ph in eng.slot_phase):
         eng.step()
+        n += 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(ticks):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / ticks * 1e3
-    rows = profiled(torch, eng.step, ticks)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+    rows = device_kernels(torch, prof)
     busy = sum(r[0] for r in rows) / ticks / 1e3
     launches = sum(r[1] for r in rows) / ticks
-    log(f"[tick] gemma-2b{label} decode B={len(prompts)}: wall {wall:.3f} "
-        f"ms/tick, device busy {busy:.3f} ms/tick, idle share "
-        f"{1 - busy / wall:.3f}, {launches:g} launches on the card a tick")
-    for us, n, key in rows[:12]:
-        log(f"[tick]   {us / ticks / 1e3:.4f} ms x{n // ticks}  {key[:90]}")
-    return dict(wall_ms=wall, busy_ms=busy, launches=launches)
+    walk = sum(r[0] for r in rows if "paged_kernel" in r[2]) / ticks / 1e3
+    bmm, n_bmm = 0.0, 0
+    for e in prof.key_averages():
+        if e.key == "aten::bmm":
+            us = getattr(e, "device_time_total", None)
+            bmm = (us if us is not None else e.cuda_time_total) / ticks / 1e3
+            n_bmm = e.count // ticks
+    log(f"[tick] {cfg.name}{label} decode B={len(prompts)}: wall "
+        f"{wall:.3f} ms/tick, device busy {busy:.3f} ms/tick, idle share "
+        f"{1 - busy / wall:.3f}, {launches:g} launches on the card a tick; "
+        f"the walk {walk:.4f} ms, the expert products {bmm:.4f} ms in "
+        f"{n_bmm} calls, the rest {busy - walk - bmm:.4f} ms")
+    for us, k, key in rows[:12]:
+        log(f"[tick]   {us / ticks / 1e3:.4f} ms x{k // ticks}  {key[:90]}")
+    return dict(wall_ms=wall, busy_ms=busy, launches=launches, walk_ms=walk,
+                bmm_ms=bmm, bmm_calls=n_bmm, rest_ms=busy - walk - bmm)
 
 
 def gemma_serving(torch, dev):
@@ -1045,6 +1124,32 @@ def gemma_serving(torch, dev):
     kw = dict(max_slots=B, block_size=BS, max_blocks_per_seq=-(-(P + G) // BS),
               device=dev)
     return cfg, params, prompts, kw
+
+
+def held_to_generate(tag, streams, toks, top2, allowed):
+    """Hold served ``streams`` to ``generate``'s tokens ``toks``: a stream
+    may leave them only where the oracle's top two logits (``top2``) are
+    within ``allowed`` of each other, where rounding alone can swap them.
+    Returns how many streams are identical."""
+    exact = 0
+    for b, (got, ref) in enumerate(zip(streams, toks)):
+        G = len(ref)
+        if len(got) != G:
+            raise AssertionError(f"{tag} request {b} served {len(got)} "
+                                 f"tokens, generate {G}")
+        t = next((i for i in range(G) if got[i] != ref[i]), None)
+        if t is None:
+            exact += 1
+            log(f"{tag} request {b}: {G} tokens identical to generate")
+            continue
+        gap = (top2[b, t, 0] - top2[b, t, 1]).item()
+        log(f"{tag} request {b}: first divergence at token {t}: oracle "
+            f"top-2 gap {gap:.4f} (allowed < {allowed:.4f})")
+        if not gap < allowed:
+            raise AssertionError(f"{tag} request {b} diverges at token {t} "
+                                 f"with a clear top-2 gap {gap}")
+    log(f"{tag} {exact}/{len(toks)} streams identical to generate")
+    return exact
 
 
 def phase_full_width(torch, dev):
@@ -1100,22 +1205,8 @@ def phase_full_width(torch, dev):
     # a stream may leave generate's only where the oracle's top two
     # logits are within the two paths' measured logit difference of each
     # other: then rounding alone can swap them
-    allowed = 2 * tf_err
-    exact = 0
-    for b, rid in enumerate(ids):
-        got, ref = results[rid], toks[b]
-        t = next((i for i in range(G) if got[i] != ref[i]), None)
-        if t is None:
-            exact += 1
-            log(f"[full] request {rid}: {G} tokens identical to generate")
-            continue
-        gap = (top2[b, t, 0] - top2[b, t, 1]).item()
-        log(f"[full] request {rid}: first divergence at token {t}: oracle "
-            f"top-2 gap {gap:.4f} (allowed < {allowed:.4f})")
-        if not gap < allowed:
-            raise AssertionError(f"full width: request {rid} diverges at "
-                                 f"token {t} with a clear top-2 gap {gap}")
-    log(f"[full] {exact}/{B} streams identical to generate")
+    held_to_generate("[full]", [results[i] for i in ids], toks, top2,
+                     2 * tf_err)
     tick_breakdown(torch, cfg, params, prompts, G, kw)
     tick_breakdown(torch, cfg, params, prompts, G,
                    dict(kw, kv_dtype="int8"), label=" int8 pages")
@@ -1816,6 +1907,383 @@ def phase_frontends(torch, dev, full):
                              "streams, or sampling gave the greedy stream")
     log(f"[5c] phase 5c took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5d and 5e: the MoE stack (olmoe-1b-7b) and the other configs
+# ---------------------------------------------------------------------------
+
+def scaled_model(torch, dev, name, n_layers=None):
+    """``name``'s config at full published width (``n_layers`` cuts its
+    depth) with random weights from seed 0 on the card, both output
+    projections (attention's and the MLP's or every expert's ``wo``)
+    scaled by ``BRANCH_GAIN * sqrt(d_model)`` as phase 5 scales
+    gemma-2b's.  Under a final-logit softcap (grok-1-314b) the final
+    norm's scale is cut so the logits have a std of a third of the cap
+    before it: random tied embeddings give logits of std sqrt(d_model),
+    which the cap would flatten into ties.  Returns (cfg, params)."""
+    import dataclasses
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(name)
+    cut = ""
+    if n_layers is not None:
+        cut = f", depth cut from {cfg.n_layers} to {n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    gain = BRANCH_GAIN * cfg.d_model ** 0.5
+    params["layers"]["attn"]["wo"].mul_(gain)
+    params["layers"]["moe" if cfg.moe else "mlp"]["wo"].mul_(gain)
+    if cfg.logit_softcap:
+        s = cfg.logit_softcap / 3 / cfg.d_model ** 0.5
+        params["final_ln"]["scale"].mul_(s)
+        cut += (f", final norm x{s:.4f} (logits of std "
+                f"{cfg.logit_softcap / 3:g} before the softcap "
+                f"{cfg.logit_softcap:g})")
+    torch.cuda.synchronize()
+    log(f"[{name}] {M.count_params(cfg) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}) initialised in {time.perf_counter() - t0:.1f} s, "
+        f"output projections x{gain:.2f}{cut}")
+    return cfg, params
+
+
+def dropless(cfg):
+    """``cfg`` with ``capacity_factor`` raised to E / k, so that every
+    expert's buffer holds every token (C >= T for any T): the MoE output
+    of a token then depends on that token alone, as exactness needs."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    cf = m.num_experts / m.top_k
+    log(f"[{cfg.name}] exactness checks under the dropless override: "
+        f"capacity_factor {m.capacity_factor:g} -> {cf:g} (E {m.num_experts}"
+        f" / k {m.top_k})")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=cf))
+
+
+def served(torch, eng, prompts, G):
+    """:func:`serve` ``prompts`` (B, P) for ``G`` tokens each as one wave;
+    returns (streams in submission order, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = serve(eng, [[(row, G) for row in prompts]])
+    torch.cuda.synchronize()
+    return streams, time.perf_counter() - t0
+
+
+def held_at_full_width(torch, dev, tag, cfg, params, prompts, streams, BS):
+    """Phase 5's checks on a config's fp-page streams: the streams vary,
+    the paged step's teacher-forced logits lie within ``TF_RATIO`` of the
+    bf16 oracle's own distance from fp32, and each stream equals
+    ``generate``'s up to a first divergence at a near-tie.  Returns the
+    teacher-forced numbers."""
+    from repro_torch.launch.serve import generate
+    B, P = prompts.shape
+    G = len(streams[0])
+    varied(f"{cfg.name} fp pages", streams)
+    seq, top2 = generate(cfg, params, torch.from_numpy(prompts).to(dev), G,
+                         return_top2=True)
+    toks, top2 = seq[:, P:].cpu().tolist(), top2.cpu()
+    log(f"{tag} generate: distinct tokens per stream "
+        f"{[len(set(r)) for r in toks]}, smallest top-2 logit gap "
+        f"{(top2[..., 0] - top2[..., 1]).min().item():.4f}")
+    tf_err, paged_err, own_err = teacher_forced(torch, dev, cfg, params,
+                                                seq, P, BS)
+    log(f"{tag} teacher-forced logits over {B}x{P + G} positions: "
+        f"max|paged - generate's bf16| {tf_err:.4f}; against fp32: paged "
+        f"{paged_err:.4f}, generate's bf16 {own_err:.4f} (allowed "
+        f"{TF_RATIO:g}x)")
+    if not paged_err <= TF_RATIO * own_err:
+        raise AssertionError(f"{tag} the paged step's logits are further "
+                             f"from fp32 than bf16 rounding explains")
+    exact = held_to_generate(tag, streams, toks, top2, 2 * tf_err)
+    return dict(tf_err=tf_err, paged_err=paged_err, own_err=own_err,
+                exact=exact)
+
+
+def cast_fp32(tree):
+    """Cast every leaf of ``tree`` to fp32 in place, one leaf at a time,
+    so the bf16 and fp32 copies of the whole model never coexist."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            cast_fp32(v)
+        else:
+            tree[k] = v.float()
+
+
+def held_in_fp32(torch, dev, tag, cfg, params, prompts, G, kw):
+    """The same weights in fp32 (``params`` cast in place): the engine over
+    fp32 pages, the fp32 walk launching once per layer per tick; each
+    stream identical to fp32 ``generate``'s or leaving it at a top-2 gap
+    under ``FP32_TIE``; teacher-forced, the paged step's logits within
+    ``FP32_TF`` of the largest fp32 ``forward`` logit.  bf16 rounding
+    flips MoE routing at near-ties between any two paths, which the bf16
+    checks must allow for; in fp32 such flips are rare enough to hold
+    the paths to each other.  Returns the launch counts."""
+    import dataclasses
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving import PagedServingEngine
+    cast_fp32(params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    B, P = prompts.shape
+    eng = PagedServingEngine(c32, params, **kw)
+    zero_counts(kernel)
+    streams, wall = served(torch, eng, prompts, G)
+    c = counts(kernel)
+    per_pass = c32.n_layers * eng.dispatches
+    log(f"{tag} fp32 weights and pages: {eng.dispatches} ticks, {wall:.3f} "
+        f"s; launches {c} (n_layers {c32.n_layers} x dispatches "
+        f"{eng.dispatches} = {per_pass})")
+    if not c["fp"] == per_pass > 0:
+        raise AssertionError(f"{tag} fp32: the update did not launch once "
+                             f"per layer per tick")
+    seq, top2 = generate(c32, params, torch.from_numpy(prompts).to(dev), G,
+                         return_top2=True)
+    toks, top2 = seq[:, P:].cpu().tolist(), top2.cpu()
+    paged = paged_logits(torch, dev, c32, params, seq, P, kw["block_size"])
+    ref = forward_f32(torch, c32, params, seq)
+    err, scale = (paged - ref).abs().max().item(), ref.abs().max().item()
+    log(f"{tag} fp32 teacher-forced over {B}x{seq.shape[1]} positions: "
+        f"max|paged - forward| {err:.3e}, largest logit {scale:.3f} "
+        f"(allowed {FP32_TF:g} of it)")
+    if not err <= FP32_TF * scale:
+        raise AssertionError(f"{tag} fp32: the paged step's logits leave "
+                             f"the fp32 forward's")
+    held_to_generate(f"{tag} fp32", streams, toks, top2, FP32_TIE)
+    return c
+
+
+def expert_bytes(cfg):
+    """Bytes of every expert matrix of the stack (bf16): what a decode
+    tick reads when every expert runs, whatever the batch."""
+    m = cfg.moe
+    mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+    return cfg.n_layers * m.num_experts * mats * cfg.d_model * m.d_ff * 2
+
+
+@contextlib.contextmanager
+def drop_tally(torch, dev):
+    """While active, each ``moe.apply_moe`` call also routes its input once
+    more (``moe.route``, a side call) and adds the assignments its capacity
+    drops and all its assignments to the yielded (2,) tensor; the engine
+    itself counts nothing."""
+    from repro_torch.models import moe
+    orig = moe.apply_moe
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def counted(p, x, cfg, cap=None):
+        T = x.shape[0] * x.shape[1]
+        r = moe.route(p["router"], x.reshape(T, -1), cfg,
+                      cap if cap is not None else moe.capacity(T, cfg))
+        tally[0] += (~r.keep).sum()
+        tally[1] += r.keep.numel()
+        return orig(p, x, cfg, cap)
+
+    moe.apply_moe = counted
+    try:
+        yield tally
+    finally:
+        moe.apply_moe = orig
+
+
+def phase_moe_full_width(torch, dev, worst):
+    """olmoe-1b-7b at full width (16 layers, d 2048, 16 heads of 128, 64
+    experts top-8, d_ff 1024, vocab 50304, bf16) through the unified tick,
+    each run with the launch counts set to 0 just before it: fp pages,
+    int8 pages and the prefix cache under the dropless override, held as
+    phase 5 holds gemma-2b; then the published capacity factor: the
+    dropped share and a decode tick's breakdown.  Returns {path: launch
+    counts}."""
+    import numpy as np
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serving import PagedServingEngine
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    name = "olmoe-1b-7b"
+    tag = f"[{name}]"
+    cfg_pub, params = scaled_model(torch, dev, name)
+    cfg = dropless(cfg_pub)
+    L = cfg.n_layers
+    B, P, G, BS = 4, 32, 32, 16
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (B, P),
+                                                dtype=np.int32)
+    kw = dict(max_slots=B, block_size=BS, max_blocks_per_seq=-(-(P + G) // BS),
+              device=dev)
+    warm = PagedServingEngine(cfg, params, **kw)
+    warm.submit(prompts[0], 4)
+    warm.run_to_completion()
+    del warm
+    out = {}
+
+    def drive(eng, label):
+        """Serve the batch; mid-decode, hold the read-only walk against
+        plain over the pools (layers 0 and L-1)."""
+        ids = [eng.submit(row, G) for row in prompts]
+        while any(ph != "decode" for ph in eng.slot_phase):
+            eng.step()
+        for _ in range(3):
+            eng.step()
+        readonly_over_engine(torch, dev, eng, f"{name} {label}", worst)
+        res = eng.run_to_completion()
+        return [res[i] for i in ids]
+
+    # -- fp pages, then int8 pages: the update once per layer per tick,
+    # the read-only walk twice a run ------------------------------------
+    streams = {}
+    for kv, key in ((None, "fp"), ("int8", "int8")):
+        eng = PagedServingEngine(cfg, params, kv_dtype=kv, **kw)
+        torch.cuda.synchronize()
+        zero_counts(kernel)
+        streams[key] = drive(eng, key)
+        c = counts(kernel)
+        per_pass = L * eng.dispatches
+        log(f"{tag} {key} pages: {B} requests x {G} tokens in "
+            f"{eng.dispatches} ticks; launches {c} (the D 128 {key} update:"
+            f" n_layers {L} x dispatches {eng.dispatches} = {per_pass}; "
+            f"the read-only walk 2)")
+        other = "int8" if key == "fp" else "fp"
+        if not (c[key] == per_pass > 0 and c[other] == 0
+                and c["readonly"] == 2):
+            raise AssertionError(f"{tag} {key} pages: the update did not "
+                                 f"launch once per layer per tick")
+        if [len(s) for s in streams[key]] != [G] * B:
+            raise AssertionError(f"{tag} {key} pages: a request did not "
+                                 f"finish")
+        out[f"{name} {key}"] = c
+    varied(f"{name} int8 pages", streams["int8"])
+    held = held_at_full_width(torch, dev, tag, cfg, params, prompts,
+                              streams["fp"], BS)
+    # -- the prefix cache: two 48-token system prompts, each with two
+    # 16-token suffixes, and one prompt re-served in full (its last token
+    # recomputed into a copy-on-write page).  160-token prompts as in
+    # phase 5b leave this random model's streams nearly constant.  One
+    # slot and chunks of 3, so both runs compute every token in the same
+    # shapes: chunk bounds fall on 48, where a hit's prefill starts, and
+    # on 63, the re-served prompt's last token -------------------------
+    rng = np.random.default_rng(2)
+    systems = [rng.integers(0, cfg.vocab, 3 * BS, dtype=np.int32)
+               for _ in range(2)]
+    shared = [np.concatenate([sysp, rng.integers(0, cfg.vocab, BS,
+                                                 dtype=np.int32)])
+              for sysp in systems for _ in range(2)]
+    waves = [[(p, 16)] for p in shared] + [[(shared[0].copy(), 16)]]
+    pkw = dict(kw, max_slots=1, max_blocks_per_seq=-(-(4 * BS + 16) // BS),
+               num_blocks=64, prefill_chunk=3)
+    runs = {}
+    for pc in (False, True):
+        eng = PagedServingEngine(cfg, params, prefix_cache=pc, **pkw)
+        torch.cuda.synchronize()
+        zero_counts(kernel)
+        runs[pc] = (serve(eng, waves), counts(kernel),
+                    eng.metrics()["prefix_cache"])
+    (off, _, _), (on, c, m) = runs[False], runs[True]
+    log(f"{tag} prefix cache: hits {m['hit_tokens']} of "
+        f"{m['lookup_tokens']} prompt tokens, copy-on-write copies "
+        f"{m['cow_copies']}, launches {c}; streams byte-equal to the cache "
+        f"off: {[a == b for a, b in zip(on, off)]}")
+    if on != off:
+        raise AssertionError(f"{tag} prefix cache: streams differ from the "
+                             f"cache off")
+    varied(f"{name} prefix cache", on)
+    if not (m["hit_tokens"] > 0 and m["cow_copies"] > 0
+            and c["copy"] == m["cow_copies"]):
+        raise AssertionError(f"{tag} prefix cache: no hit, or not one "
+                             f"copy_pages launch a copy-on-write")
+    out[f"{name} prefix cache"] = c
+    # -- the published capacity factor: drops, then the tick ----------------
+    eng = PagedServingEngine(cfg_pub, params, **kw)
+    with drop_tally(torch, dev) as tally:
+        streams, wall = served(torch, eng, prompts, G)
+    dropped, total = tally.tolist()
+    log(f"{tag} capacity_factor {cfg_pub.moe.capacity_factor:g}: {B} "
+        f"requests x {G} tokens in {eng.dispatches} ticks, {wall:.3f} s "
+        f"({B * G / wall:.1f} tokens/s); {dropped} of {total} assignments "
+        f"dropped ({dropped / total:.4f}; rows of the padded buckets "
+        f"included), served {[len(s) for s in streams]}")
+    if [len(s) for s in streams] != [G] * B:
+        raise AssertionError(f"{tag} published capacity: a request did not "
+                             f"finish")
+    tick = tick_breakdown(torch, cfg_pub, params, prompts, G, kw)
+    eb = expert_bytes(cfg_pub)
+    log(f"{tag} every expert runs at C >= 8 every tick: {eb / 1e9:.2f} GB "
+        f"of expert weights a tick ({eb / L / 1e6:.0f} MB a layer), at "
+        f"least {eb / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s; the products took "
+        f"{tick['bmm_ms']:.3f} ms")
+    out[f"{name} fp32"] = held_in_fp32(torch, dev, tag, cfg, params,
+                                       prompts, G, kw)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} phase 5d: {time.perf_counter() - t_phase:.1f} s, peak "
+        f"memory {peak:.1f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return out, dict(held, dropped=dropped, assignments=total, tick=tick)
+
+
+# (name, layers or None for all, prompt length): phase 5e's configs
+OTHER_CONFIGS = (("glm4-9b", None, 32), ("gemma3-4b", None, 1100),
+                 ("grok-1-314b", 2, 32))
+
+
+def phase_other_configs(torch, dev):
+    """glm4-9b (40 layers), gemma3-4b (34 layers; 1100-token prompts cross
+    its 1024-token window) and grok-1-314b (full width, depth cut to 2 of
+    64 layers: one card holds about 7 in bf16, a layer's experts taking
+    9.66 GB) through the unified tick over fp pages, 4 requests x 32
+    tokens each, the launch counts set to 0 just before each: the update
+    launches once per layer per tick, and phase 5's checks hold (grok
+    under the dropless override).  Then a decode tick's breakdown.
+    Returns {path: launch counts}."""
+    import numpy as np
+    from repro_torch.kernels.paged_attention import kernel
+    from repro_torch.serving import PagedServingEngine
+    out, numbers = {}, {}
+    for name, n_layers, P in OTHER_CONFIGS:
+        t_phase = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        tag = f"[{name}]"
+        cfg_pub, params = scaled_model(torch, dev, name, n_layers)
+        cfg = dropless(cfg_pub)
+        L, B, G, BS = cfg.n_layers, 4, 32, 16
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab, (B, P),
+                                                    dtype=np.int32)
+        kw = dict(max_slots=B, block_size=BS,
+                  max_blocks_per_seq=-(-(P + G) // BS), device=dev)
+        warm = PagedServingEngine(cfg, params, **kw)
+        warm.submit(prompts[0, :32], 4)
+        warm.run_to_completion()
+        del warm
+        eng = PagedServingEngine(cfg, params, **kw)
+        zero_counts(kernel)
+        streams, wall = served(torch, eng, prompts, G)
+        c = counts(kernel)
+        per_pass = L * eng.dispatches
+        log(f"{tag} fp pages: {B} requests x (prompt {P} + {G}) in "
+            f"{eng.dispatches} ticks, {wall:.3f} s; head_dim "
+            f"{cfg.head_dim}, {cfg.n_heads} heads over {cfg.n_kv_heads}, "
+            f"window {cfg.sliding_window or 'none'}, softcap "
+            f"{cfg.attn_logit_softcap:g}; launches {c} (n_layers {L} x "
+            f"dispatches {eng.dispatches} = {per_pass})")
+        if not (c["fp"] == per_pass > 0):
+            raise AssertionError(f"{tag} the update did not launch once per "
+                                 f"layer per tick")
+        out[f"{name} fp"] = c
+        held = held_at_full_width(torch, dev, tag, cfg, params, prompts,
+                                  streams, BS)
+        tick = tick_breakdown(torch, cfg_pub, params, prompts, G, kw)
+        out[f"{name} fp32"] = held_in_fp32(torch, dev, tag, cfg, params,
+                                           prompts, G, kw)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"{tag} phase 5e: {time.perf_counter() - t_phase:.1f} s, peak "
+            f"memory {peak:.1f} GiB")
+        numbers[name] = dict(held, tick=tick)
+        del params, eng
+        torch.cuda.empty_cache()
+    return out, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -3493,6 +3961,10 @@ def main():
     spec_launches.update(phase_frontends(torch, dev, full))
     fp_launches = full["launches"]
     del full                            # the full-width weights
+    torch.cuda.empty_cache()
+    moe_launches, _ = phase_moe_full_width(torch, dev, family_err)
+    spec_launches.update(moe_launches)
+    spec_launches.update(phase_other_configs(torch, dev)[0])
     timing = phase_timing(torch, dev)
     family_timing = phase_family_timing(torch, dev)
     flash_err = phase_flash_vs_plain(torch, dev)
@@ -3523,8 +3995,8 @@ def main():
 
     def paths(key):
         """A kernel's launches on each of phase 5b's speculation, swap and
-        host-tier runs and phase 5c's open-loop and router runs that
-        launched it."""
+        host-tier runs, phase 5c's open-loop and router runs and phases
+        5d and 5e's models that launched it."""
         return {"launches_by_path": {label: c[key]
                                      for label, c in spec_launches.items()
                                      if c[key]}}
@@ -3541,7 +4013,8 @@ def main():
         entry("paged_attention", KERNEL_SOURCE, READONLY_REPLACES,
               family_launches["readonly"], family_err["readonly"],
               dict(family_timing["read-only fp"],
-                   d128=family_timing["read-only fp D128"])),
+                   d128=family_timing["read-only fp D128"],
+                   **paths("readonly"))),
         # per copy-on-write over gemma-2b's whole cache (fp pages; int8
         # pages and the one-pool call beside it)
         entry("copy_page", COPY_SOURCE, COPY_REPLACES,

@@ -3,5 +3,6 @@
 Importing this package registers each architecture with
 ``repro_torch.config._REGISTRY``.
 """
-from repro_torch.configs import (gemma_2b, granite_3_2b,  # noqa: F401
-                                 rwkv6_1_6b)
+from repro_torch.configs import (gemma3_4b, gemma_2b,  # noqa: F401
+                                 glm4_9b, granite_3_2b, grok_1_314b,
+                                 olmoe_1b_7b, rwkv6_1_6b)

@@ -1,5 +1,6 @@
-"""Model assembly for the dense decoder and RWKV-6 families: init, forward,
-prefill and decode.  The counterpart of ``repro/models/model.py``.
+"""Model assembly for the dense and MoE decoders and the RWKV-6 family:
+init, forward, prefill and decode.  The counterpart of
+``repro/models/model.py``.
 
     init_params(cfg, seed, device)        -> params (nested dict of tensors)
     forward(cfg, params, batch)           -> final hidden states (B, S, d)
@@ -69,9 +70,23 @@ def count_params(cfg) -> int:
         layer = tm + cm
     else:
         attn = d * cfg.q_dim * 2 + d * cfg.kv_dim * 2
-        mlp = d * f * (3 if cfg.act in ("swiglu", "geglu") else 2)
-        layer = attn + mlp
+        mats = 3 if cfg.act in ("swiglu", "geglu") else 2
+        if cfg.moe is not None:
+            E = cfg.moe.num_experts
+            ffn = d * E + E * d * cfg.moe.d_ff * mats
+        else:
+            ffn = d * f * mats
+        layer = attn + ffn
     return L * (layer + 2 * norms) + norms + embed + head
+
+
+def check_trainable(cfg) -> None:
+    """Raise for an MoE config: training it without the router's
+    load-balancing term would silently train another model."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training, with its load-balancing aux term "
+            f"in the loss, is not ported yet (ROADMAP.md Queue 1 item 11)")
 
 
 def forward(cfg, params: Params, batch: Dict[str, torch.Tensor]
@@ -121,9 +136,12 @@ def chunked_xent(cfg, params: Params, hidden: torch.Tensor,
 
 def loss_fn(cfg, params: Params, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Mean next-token cross-entropy over labels >= 0 (the dense family
-    has no auxiliary loss).  Returns (loss, {"loss", "xent", "aux",
-    "tokens"})."""
+    """Mean next-token cross-entropy over labels >= 0 (the dense and RWKV
+    families have no auxiliary loss).  Returns (loss, {"loss", "xent",
+    "aux", "tokens"}).  An MoE config raises: its loss needs the
+    load-balancing aux term, which the port's forward does not carry
+    yet."""
+    check_trainable(cfg)
     hidden = forward(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     tot, cnt = chunked_xent(cfg, params, hidden, batch["labels"])

@@ -1,11 +1,12 @@
-"""Decoder stacks for the dense and RWKV-6 families: stacked layer params
-and a Python loop over layers.  The counterpart of
+"""Decoder stacks for the dense, MoE and RWKV-6 families: stacked layer
+params and a Python loop over layers.  The counterpart of
 ``repro/models/transformer.py``.
 
 Layer weights keep the JAX package's stacked ``(L, ...)`` layout; the loop
 takes the ``i``-th slice of each (a view) where JAX scans over them.  A
-dense layer is attn -> mlp, an RWKV layer time-mix -> channel-mix
-(``models/rwkv6.py``).  MoE, hybrid-SSM and cross-attention layers come in
+dense layer is attn -> mlp, an MoE layer attn -> MoE FFN
+(``models/moe.py``), an RWKV layer time-mix -> channel-mix
+(``models/rwkv6.py``).  Hybrid-SSM and cross-attention layers come in
 later slices.
 
 ``cfg.remat`` is the JAX package's rematerialisation policy, applied to
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6
 from repro_torch.models.layers import (apply_attention, apply_mlp,
                                        apply_norm, init_attention, init_mlp,
@@ -37,13 +39,13 @@ FULL_WINDOW = 1 << 30
 
 def check_dense(cfg) -> None:
     """Raise for the families this slice of the port does not run yet: it
-    runs dense decoders and RWKV-6 stacks."""
-    if ((cfg.family != "dense" and not cfg.rwkv) or cfg.moe is not None
+    runs dense and MoE decoders and RWKV-6 stacks."""
+    if ((cfg.family not in ("dense", "moe") and not cfg.rwkv)
             or cfg.parallel_ssm or cfg.n_encoder_layers
             or cfg.n_image_tokens or cfg.rope_theta <= 0):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoders and RWKV-6 only so "
-            f"far (ROADMAP.md Queue 1 item 4: MoE; item 6: the other "
+            f"{cfg.name}: the port runs dense and MoE decoders and RWKV-6 "
+            f"only so far (ROADMAP.md Queue 1 item 6: the other "
             f"families)")
 
 
@@ -73,7 +75,10 @@ def init_stack(cfg, gen: torch.Generator, n_layers: int, device,
             "cm": rwkv6.init_channel_mix(cfg, gen, n_layers, device, dtype)}
         return p
     p["attn"] = init_attention(cfg, gen, n_layers, device, dtype)
-    p["mlp"] = init_mlp(cfg, gen, n_layers, device, dtype)
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe(cfg, gen, n_layers, device, dtype)
+    else:
+        p["mlp"] = init_mlp(cfg, gen, n_layers, device, dtype)
     return p
 
 
@@ -135,9 +140,11 @@ def layer_body(lp: Params, x: torch.Tensor, cfg, *,
                cache: Optional[Params] = None,
                cache_index: Optional[int] = None) -> torch.Tensor:
     """One layer; ``cache`` is written in place.  Dense: attn -> mlp, with
-    ``cache`` this layer's ``{"k", "v"}``.  RWKV: ``rwkv_layer``, with
-    ``cache`` this layer's state (positions, window and the cache index
-    play no part)."""
+    ``cache`` this layer's ``{"k", "v"}``; MoE: the same with the MoE FFN
+    for the MLP (its aux loss is dropped: training an MoE stack waits for
+    ROADMAP.md Queue 1 item 11).  RWKV: ``rwkv_layer``, with ``cache``
+    this layer's state (positions, window and the cache index play no
+    part)."""
     if cfg.rwkv:
         return rwkv_layer(lp, x, cfg, state=cache)
     a, _ = apply_attention(lp["attn"], apply_norm(lp["ln1"], x), cfg,
@@ -145,7 +152,15 @@ def layer_body(lp: Params, x: torch.Tensor, cfg, *,
                            window=window, cache=cache,
                            cache_index=cache_index)
     x = x + a
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x), cfg.act)
+    return x + ffn(lp, apply_norm(lp["ln2"], x), cfg)
+
+
+def ffn(lp: Params, xn: torch.Tensor, cfg) -> torch.Tensor:
+    """A layer's feed-forward sublayer on the normed ``xn``: the MoE block
+    (without its aux loss) where the config has one, else the MLP."""
+    if cfg.moe is not None:
+        return moe_lib.apply_moe(lp["moe"], xn, cfg)[0]
+    return apply_mlp(lp["mlp"], xn, cfg.act)
 
 
 def apply_stack(p: Params, x: torch.Tensor, cfg, *,

@@ -32,10 +32,10 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+from repro_torch.models.layers import (apply_norm, apply_rope,
                                        compute_dtype, embed_tokens,
                                        logits_from_hidden)
-from repro_torch.models.transformer import layer_windows, unstack
+from repro_torch.models.transformer import ffn, layer_windows, unstack
 
 Params = Dict[str, Any]
 
@@ -105,10 +105,12 @@ def _paged_layer(lp: Params, x: torch.Tensor, cfg, *,
                  row_map: Optional[torch.Tensor] = None,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One dense layer over the paged cache (attn -> mlp), mirroring
-    ``transformer.layer_body`` with the dense-cache insert/read swapped
-    for the fused paged scatter + walk.  ``k_scale``/``v_scale``: the
-    layer's scale pools when its K/V pools are int8."""
+    """One layer over the paged cache (attn -> mlp, or attn -> MoE FFN),
+    mirroring ``transformer.layer_body`` with the dense-cache insert/read
+    swapped for the fused paged scatter + walk.  The MoE block routes
+    every row handed in, padded rows of the tick's bucket too, as the JAX
+    step does.  ``k_scale``/``v_scale``: the layer's scale pools when its
+    K/V pools are int8."""
     B, S, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     xn = apply_norm(lp["ln1"], x)
@@ -131,7 +133,7 @@ def _paged_layer(lp: Params, x: torch.Tensor, cfg, *,
             max_live_blocks=max_live_blocks, k_scale=k_scale,
             v_scale=v_scale)[0]
     x = x + out.reshape(B, S, h * hd) @ ap["wo"].to(x.dtype)
-    return x + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], x), cfg.act)
+    return x + ffn(lp, apply_norm(lp["ln2"], x), cfg)
 
 
 def _stack(cfg, params: Params, cache: Params, tokens: torch.Tensor,

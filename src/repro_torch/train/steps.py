@@ -65,7 +65,9 @@ def make_train_step(cfg, *, opt_cfg: Optional[AdamWConfig] = None,
                     total_steps: int = 10_000, clip: float = 1.0
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, Any]]]:
-    """Returns train_step(state, batch) -> (new state, metrics)."""
+    """Returns train_step(state, batch) -> (new state, metrics).  Raises
+    for an MoE config (``M.check_trainable``)."""
+    M.check_trainable(cfg)
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
     n_micro = max(1, cfg.microbatches)

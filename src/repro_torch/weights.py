@@ -6,8 +6,9 @@ layer weights stay stacked on a leading ``L`` axis (the port slices layer
 ``i`` where JAX scans).  Matrices land in the compute dtype for serving, or
 in ``param_dtype`` (fp32 masters for training); norm scales and biases in
 fp32 (see ``models/layers.py``), and so are RWKV-6's token-shift
-coefficients ``mu``, decay ``w0``, ``w1``, ``w2`` and bonus ``u``, which the
-JAX package keeps fp32 whatever its ``param_dtype`` (``models/rwkv6.py``).
+coefficients ``mu``, decay ``w0``, ``w1``, ``w2`` and bonus ``u``, and the
+MoE router, which the JAX package keeps fp32 whatever its ``param_dtype``
+(``models/rwkv6.py``, ``models/moe.py``).
 
 Only the tests build a tree with JAX (``jax.tree.map(np.asarray,
 repro.models.model.init_params(cfg, key))``) and hand it over; the port
@@ -25,7 +26,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.transformer import check_dense
 
-_FP32_LEAVES = ("scale", "bias", "mu", "w0", "w1", "w2", "u")
+_FP32_LEAVES = ("scale", "bias", "mu", "w0", "w1", "w2", "u", "router")
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device: DeviceLike = None,

@@ -1338,3 +1338,83 @@ def test_cuda_engine_spec_swap_token_exact(cuda_device, kw):
         assert preemptions > 0 and swapped > 0
     if kw.get("host_cache_pages"):
         assert host_hits > 0
+
+
+# --- the MoE stack through the paged engine ----------------------------------
+
+# bf16 near-tie: a stream may leave generate's only at a token where
+# generate's top-2 logit gap is below this.  The engine's attention runs in
+# the paged kernel and its rows in other matrix shapes than generate's
+# dense path; both round to bf16 (ulp 2^-8 relative), and this model's
+# logits lie within about 30, so the two paths' logits differ by up to a
+# few tenths of a unit at worst.
+MOE_TIE = 0.25
+
+
+def test_cuda_moe_engine_exact_and_deterministic(cuda_device):
+    """Reduced olmoe-1b-7b in bf16 on the card (4 experts top-2, dropless;
+    output projections x8): the engine's streams equal the port's
+    ``generate`` (or leave it first at a near-tie under ``MOE_TIE``, with
+    at least one stream equal), the fused update launching once per layer
+    and dispatch; a second engine run serves the same streams; and the
+    paged step gives bit-equal logits twice over, dropless and under the
+    published capacity factor 1.25 (16 rows an expert for 24 tokens):
+    the MoE combine sums each token's k rows in a fixed order, with no atomics."""
+    import dataclasses
+    from repro_torch.config import get_config, reduced
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.serving import PagedServingEngine
+    from repro_torch.serving.paged_attn import init_paged_cache, paged_step
+    cfg = dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
+                              dtype="bfloat16")
+    params = M.init_params(cfg, seed=0, device=cuda_device)
+    for k in ("attn", "moe"):
+        params["layers"][k]["wo"] *= 8.0
+    assert params["layers"]["moe"]["router"].dtype == torch.float32
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (7, 2, 10)]
+    runs = []
+    for _ in range(2):
+        eng = PagedServingEngine(cfg, params, max_slots=2, block_size=4,
+                                 max_blocks_per_seq=8, prefill_chunk=3,
+                                 token_budget=5, device=cuda_device)
+        before = pa_kernel.launches
+        ids = [eng.submit(p, 6) for p in prompts]
+        results = eng.run_to_completion()
+        assert pa_kernel.launches - before == cfg.n_layers * eng.dispatches
+        runs.append([results[i] for i in ids])
+    assert runs[0] == runs[1]
+    exact = 0
+    for got, p in zip(runs[0], prompts):
+        seq, top2 = generate(cfg, params,
+                             torch.from_numpy(p)[None].to(cuda_device), 6,
+                             return_top2=True)
+        ref = seq[0, len(p):].tolist()
+        t = next((i for i in range(6) if got[i] != ref[i]), None)
+        if t is None:
+            exact += 1
+            continue
+        gap = (top2[0, t, 0] - top2[0, t, 1]).item()
+        assert gap < MOE_TIE, (t, gap, got, ref)
+    assert exact >= 1
+    # the step twice on the same inputs: bit-equal logits
+    B, S, BS = 3, 8, 4
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(cuda_device)
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=cuda_device).expand(B, -1).contiguous()
+    tables = (1 + torch.arange(B * 2, dtype=torch.int32,
+                               device=cuda_device)).reshape(B, 2)
+    for cf in (cfg.moe.capacity_factor, 1.25):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        outs = []
+        for _ in range(2):
+            cache = init_paged_cache(c, 1 + B * 2, BS, device=cuda_device)
+            lg, _ = paged_step(c, params, cache, toks, pos, tables,
+                               max_live_blocks=2)
+            outs.append(lg)
+        assert torch.isfinite(outs[0][..., :cfg.vocab].float()).all()
+        assert torch.equal(outs[0], outs[1])

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.config import MoEConfig as JMoEConfig
 from repro.config import get_config as jax_get_config
 from repro.config import reduced as jax_reduced
 from repro.launch.serve import generate as jax_generate
@@ -308,9 +309,28 @@ def test_serve_cli_batch_engine(model, capsys):
     dict(family="vlm", n_image_tokens=4), dict(rope_theta=0.0)],
     ids=["moe", "hybrid_ssm", "encdec", "image_prefix", "learned_pos"])
 def test_other_families_still_raise(change):
-    """The stack admits RWKV and nothing else new."""
+    """The stack admits RWKV and MoE and nothing else new.  The ``moe``
+    case checks what it admits: ``init_params`` builds ``layers/moe`` and
+    no ``layers/mlp``, and ``params_from_numpy`` carries JAX's reduced
+    tree unchanged (the router fp32)."""
     cfg = reduced(get_config("granite-3-2b"), **change)
-    with pytest.raises(NotImplementedError):
-        M.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({}, cfg, device="cpu")
+    if cfg.moe is None:
+        with pytest.raises(NotImplementedError):
+            M.init_params(cfg, 0, "cpu")
+        with pytest.raises(NotImplementedError):
+            params_from_numpy({}, cfg, device="cpu")
+        return
+    own = M.init_params(cfg, 0, "cpu")["layers"]
+    assert "mlp" not in own and set(own["moe"]) == {"router", "wg", "wu",
+                                                    "wo"}
+    jcfg = jax_reduced(jax_get_config("granite-3-2b"), family="moe",
+                       moe=JMoEConfig(**dataclasses.asdict(cfg.moe)))
+    tree = jax.tree.map(np.asarray, JM.init_params(jcfg,
+                                                   jax.random.PRNGKey(0)))
+    got = params_from_numpy(tree, cfg, device="cpu")
+    assert "mlp" not in got["layers"]
+    assert got["layers"]["moe"]["router"].dtype == torch.float32
+    for name, arr in tree["layers"]["moe"].items():
+        assert tuple(own["moe"][name].shape) == arr.shape
+        np.testing.assert_array_equal(got["layers"]["moe"][name].numpy(),
+                                      arr, err_msg=name)
