@@ -191,11 +191,16 @@ Phases, each raising on failure:
      shapes, gemma MQA at D 256, D 128 with a ragged S, a 32-token
      window, softcap 30, non-causal, the launcher's D 40, and the bf16
      tiling's edges (S 65 under window and softcap, D 20 with 8-byte
-     copies, an odd D 33 with plain loads).  Each row (a query's o or
-     dq, a key's dk or dv) within ``FLASH_TOL`` relative of the plain
-     row, below what known-wrong kernels give (the causal mask flipped; the last query tile's last
-     or middle 64 keys of its band dropped; no softcap factor in the backward; dk, dv of one
-     query head, not group-summed); the backward bit-equal across calls;
+     copies, an odd D 33 with plain loads); and the families' training
+     shapes (hymba-1.5b's 25 heads over 5 at 1 x 2048 with its
+     1024-token window and without, whisper-small's encoder 4 x 1500
+     non-causal and decoder 4 x 448; bf16 only at S >= 1500 and for
+     hymba).  Each row (a query's o or dq, a key's dk or dv) within
+     ``FLASH_TOL`` relative of the plain row, below what known-wrong
+     kernels give (the causal mask flipped; the window dropped; the last
+     query tile's last or middle 64 keys of its band dropped; no softcap
+     factor in the backward; dk, dv of one query head, not
+     group-summed); the backward bit-equal across calls;
   11. granite-3-2b at full width (40 layers, d 2048, vocab 49155, bf16
      compute, fp32 masters and AdamW states, remat full) on the flash
      path through ``loss_and_grads`` and ``make_train_step``: the first
@@ -248,8 +253,38 @@ Phases, each raising on failure:
      version once at each, beside the bound; no PyTorch call computes the
      recurrence, so no library time.
 
-Phases run in the order 1-6b, 10-12, 7-9, 13-15, so the training state is
-freed before the CATopt phases.
+  16. hymba-1.5b (32 layers, d 1600, 25 heads over 5 of 64, a parallel
+     SSM with state 16, window 1024 on all but 3 layers), whisper-small
+     (12 + 12 layers, d 768, 1500 encoder frames, learned positions) and
+     paligemma-3b (18 layers, d 2048, MQA of 256, a 256-token image
+     prefix) at full width, bf16, random weights from seed 0 (self
+     attention's, the SSM's and the MLP's output projections scaled as in
+     phase 5): 4 x (32 + 32) through ``launch/serve --engine batch``
+     (``run``), the streams varied; hymba also through ``--engine
+     legacy`` 4 x (16 + 16), held to ``generate`` under ``SPEC_TIE``;
+     teacher-forced on the served tokens, the serving path
+     (``prefill_cached`` + ``decode_step``) within ``TF_RATIO`` times the
+     bf16 forward's distance from the fp32 forward; then in fp32 hymba's
+     legacy engine held to ``generate`` under ``FP32_TIE`` and each
+     model's serving path within ``FP32_TF`` of its forward;
+  17. each of the three at full width on the flash path where the JAX
+     package takes its kernel (hymba, whisper's encoder and decoder; not
+     under paligemma's prefix), fp32 masters, remat full: one
+     ``loss_and_grads`` with 2 L forward-with-lse, L dq and L dk/dv
+     launches and its loss within ``LOSS_RTOL`` of plain attention's; in
+     fp32 compute the flash grads within ``FAMILY_GRAD_TOL`` of plain
+     attention's, below a 32-token window; a timed ``make_train_step``
+     step (hymba 1 x 2048, whisper 4 x 448 over 1500 frames, paligemma 1
+     x (256 + 256)) with those launches, its device busy under
+     ``torch.profiler`` and the peak memory;
+  18. the GA's legacy operator mix (``GAConfig(rgenoud_operators=
+     False)``) at the paper's scale on phase 8's problem: the best
+     fitness never rising and ending below the initial population's, the
+     best w scored by the plain version, 351 fitness launches,
+     generations/s and a generation's breakdown.
+
+Phases run in the order 1-5e, 16, 6, 6b, 10-11b, 17, 12, 7, 8, 18, 9,
+13-15, so the training state is freed before the CATopt phases.
 
 The last two lines are the kernel report (JSON) and
 ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -2672,37 +2707,50 @@ def flash_variant(torch, q, k, v, do, lse, dsum, *, n_q_heads, causal,
             ref.group_sum(dv, n_q_heads, k.shape[0]))
 
 
+# phase 10's cases: (label, B, S, H, Hkv, D, causal, window, softcap); the
+# softcap case scales q by 4, so scores reach the cap's curved part and the
+# backward's (1 - tanh^2) factor matters
+FLASH_CASES = [("granite (a)", 8, 128, 32, 8, 64, True, 0, 0.0),
+               ("granite (b)", 1, 4096, 32, 8, 64, True, 0, 0.0),
+               ("gemma MQA", 1, 256, 8, 1, 256, True, 0, 0.0),
+               ("D 128 S 200", 1, 200, 4, 2, 128, True, 0, 0.0),
+               ("window 32", 2, 200, 32, 8, 64, True, 32, 0.0),
+               ("softcap 30", 2, 200, 32, 8, 64, True, 0, 30.0),
+               ("non-causal", 2, 200, 32, 8, 64, False, 0, 0.0),
+               ("launcher D 40", 8, 128, 4, 2, 40, True, 0, 0.0),
+               # the bf16 tiling's edges: one row past a 64-row tile under
+               # window and softcap; 127 rows of D 20 (8-byte copies); an
+               # odd D (plain loads, no cp.async)
+               ("S 65 window 32 softcap 30", 1, 65, 32, 8, 64, True, 32,
+                30.0),
+               ("D 20 S 127 non-causal", 2, 127, 4, 2, 20, False, 0, 0.0),
+               ("D 33", 1, 96, 4, 1, 33, True, 0, 0.0),
+               # the families' training shapes: hymba-1.5b's 25 query heads
+               # over 5 kv heads past its 1024-token window and on a global
+               # layer; whisper-small's encoder over 1500 frames (no tile
+               # divides it, no mask) and its decoder
+               ("hymba window 1024", 1, 2048, 25, 5, 64, True, 1024, 0.0),
+               ("hymba global", 1, 2048, 25, 5, 64, True, 0, 0.0),
+               ("whisper encoder", 4, 1500, 12, 12, 64, False, 0, 0.0),
+               ("whisper decoder", 4, 448, 12, 12, 64, True, 0, 0.0)]
+# cases the main paths run in bf16 alone
+FLASH_BF16_ONLY = ("granite (b)", "hymba window 1024", "hymba global",
+                   "whisper encoder")
+
+
 def phase_flash_vs_plain(torch, dev):
     """The forward (with and without lse), dq and dk/dv kernels against
     their plain versions on the card, fp32 and bf16, row by row.
     Returns the worst max |kernel - plain| of each: {"fwd", "fwd_lse",
     "bwd"}."""
     from repro_torch.kernels.flash_attention import kernel, ref
-    # (label, B, S, H, Hkv, D, causal, window, softcap); the softcap case
-    # scales q by 4, so scores reach the cap's curved part and the
-    # backward's (1 - tanh^2) factor matters
-    cases = [("granite (a)", 8, 128, 32, 8, 64, True, 0, 0.0),
-             ("granite (b)", 1, 4096, 32, 8, 64, True, 0, 0.0),
-             ("gemma MQA", 1, 256, 8, 1, 256, True, 0, 0.0),
-             ("D 128 S 200", 1, 200, 4, 2, 128, True, 0, 0.0),
-             ("window 32", 2, 200, 32, 8, 64, True, 32, 0.0),
-             ("softcap 30", 2, 200, 32, 8, 64, True, 0, 30.0),
-             ("non-causal", 2, 200, 32, 8, 64, False, 0, 0.0),
-             ("launcher D 40", 8, 128, 4, 2, 40, True, 0, 0.0),
-             # the bf16 tiling's edges: one row past a 64-row tile under
-             # window and softcap; 127 rows of D 20 (8-byte copies); an
-             # odd D (plain loads, no cp.async)
-             ("S 65 window 32 softcap 30", 1, 65, 32, 8, 64, True, 32,
-              30.0),
-             ("D 20 S 127 non-causal", 2, 127, 4, 2, 20, False, 0, 0.0),
-             ("D 33", 1, 96, 4, 1, 33, True, 0, 0.0)]
     worst = {"fwd": 0.0, "fwd_lse": 0.0, "bwd": 0.0}
     worst_row = dict(worst)
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).split(".")[-1]]
-        for label, B, S, H, Hkv, D, causal, window, softcap in cases:
-            if label == "granite (b)" and dtype == torch.float32:
-                continue                   # the main path runs it in bf16
+        for label, B, S, H, Hkv, D, causal, window, softcap in FLASH_CASES:
+            if label in FLASH_BF16_ONLY and dtype == torch.float32:
+                continue
             name = f"flash {label} {str(dtype).split('.')[-1]}"
             q, k, v, do = flash_inputs(torch, dev, dtype, B, S, H, Hkv, D)
             if softcap > 0:
@@ -2713,7 +2761,11 @@ def phase_flash_vs_plain(torch, dev):
             o = kernel.flash_fwd(q, k, v, **opts)
             o2, lse = kernel.flash_fwd(q, k, v, with_lse=True, **opts)
             po, plse = ref.flash_fwd(q, k, v, with_lse=True, **opts)
-            wrong_o = ref.flash_fwd(q, k, v, **flipped)
+            wrong_o = {"causal mask flipped": ref.flash_fwd(q, k, v,
+                                                            **flipped)}
+            unwindowed = dict(opts, window=0)
+            if window > 0:
+                wrong_o["window off"] = ref.flash_fwd(q, k, v, **unwindowed)
             dsum = (do.float() * po.float()).sum(-1)
             dropped = {w: flash_variant(
                 torch, q, k, v, do, plse, dsum, **opts,
@@ -2724,7 +2776,8 @@ def phase_flash_vs_plain(torch, dev):
             for key, got in (("fwd", o), ("fwd_lse", o2)):
                 err = row_err(torch, got, po)
                 judge(f"{name} {key}", err, tol,
-                      {"causal mask flipped": row_err(torch, wrong_o, po),
+                      {**{w: row_err(torch, x, po)
+                          for w, x in wrong_o.items()},
                        **{w: row_err(torch, x[0], po)
                           for w, x in dropped.items()}},
                       what=ROW_ERR)
@@ -2743,6 +2796,11 @@ def phase_flash_vs_plain(torch, dev):
                 wq, ref.group_sum(wk, H, k.shape[0]),
                 ref.group_sum(wv, H, k.shape[0])),
                 **{w: x[1:] for w, x in dropped.items()}}
+            if window > 0:
+                uq, uk, uv = ref.flash_bwd(q, k, v, do, plse, dsum,
+                                           **unwindowed)
+                wrong["window off"] = (uq, ref.group_sum(uk, H, k.shape[0]),
+                                       ref.group_sum(uv, H, k.shape[0]))
             if softcap > 0:
                 wrong["no softcap factor"] = flash_variant(
                     torch, q, k, v, do, plse, dsum, **opts,
@@ -2792,12 +2850,15 @@ def zero_flash_counts():
         setattr(kernel, f"{k}_launches", 0)
 
 
-def leaf_errs(torch, a, b):
+def leaf_errs(torch, a, b, part=None):
     """Per-leaf ||a - b|| / ||b|| of two gradient trees: the worst and
-    its leaf."""
+    its leaf (of the leaves under a ``part`` node, such as ``attn``, if
+    given)."""
     from repro_torch.core.tree import get_path, leaf_paths
     worst, at = 0.0, ""
     for path in leaf_paths(b):
+        if part is not None and part not in path:
+            continue
         x, y = get_path(a, path).float(), get_path(b, path).float()
         e = (torch.linalg.vector_norm(x - y)
              / torch.linalg.vector_norm(y)).item()
@@ -3887,6 +3948,384 @@ def phase_wkv_timing(torch, dev, real):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 16 to 18: the hybrid-SSM, encoder-decoder and image-prefix
+# families at full width, serving and training, and the GA's legacy mix
+# ---------------------------------------------------------------------------
+
+FAMILY_NAMES = ("hymba-1.5b", "whisper-small", "paligemma-3b")
+FAMILY_SERVE = dict(B=4, P=32, G=32)
+# hymba through the legacy engine: one dispatch per slot and token
+FAMILY_LEGACY = dict(B=4, P=16, G=16)
+# (batch, text tokens) of a train step: hymba past its 1024-token window,
+# whisper at its 448-token decoder context over 1500 frames, paligemma
+# with its 256-token image prefix before 256 text tokens
+FAMILY_TRAIN = {"hymba-1.5b": (1, 2048), "whisper-small": (4, 448),
+                "paligemma-3b": (1, 256)}
+# phase 17: fp32 grads, the flash path against plain attention, worst
+# leaf.  The two sum in other orders, and hymba's 32 layers carry the
+# difference into its SSM's grads (w_c 6.4e-4 from plain in an fp32 run,
+# a 32-token window 1.6)
+FAMILY_GRAD_TOL = 1e-2
+
+
+def family_stacks(params):
+    """The layer stacks of a parameter tree: the decoder's, and the
+    encoder's where there is one."""
+    return [params["layers"]] + ([params["encoder"]["layers"]]
+                                 if "encoder" in params else [])
+
+
+def family_model(torch, dev, name):
+    """``name`` at full published width, random bf16 weights from seed 0,
+    the output projections of self attention, the SSM and the MLP scaled
+    by ``BRANCH_GAIN``, and by sqrt(d_model) more where the embeddings
+    are (gemma's scaling, paligemma), as phase 5 scales gemma-2b's: so
+    greedy streams vary.  Cross attention keeps its scale: over the zero
+    frames it adds the same vector at every position of every request,
+    which scaled up would set every token alike.  Returns (cfg,
+    params)."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    gain = BRANCH_GAIN * (cfg.d_model ** 0.5
+                          if cfg.family in ("dense", "vlm")
+                          and cfg.act == "geglu" else 1.0)
+    for st in family_stacks(params):
+        for k in ("attn", "mlp"):
+            st[k]["wo"].mul_(gain)
+        if "ssm" in st:
+            st["ssm"]["w_out"].mul_(gain)
+    sync(torch, dev)
+    log(f"[{name}] {M.count_params(cfg) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}; {cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers over "
+           f"{cfg.encoder_seq} frames" if cfg.n_encoder_layers else "")
+        + (f", a {cfg.n_image_tokens}-token image prefix"
+           if cfg.n_image_tokens else "")
+        + (f", SSM state {cfg.ssm_state}, window {cfg.sliding_window} "
+           f"on all but {cfg.n_global_layers} layers"
+           if cfg.parallel_ssm else "")
+        + f") initialised in {time.perf_counter() - t0:.1f} s, output "
+        f"projections x{gain:.2f}")
+    return cfg, params
+
+
+def family_logits(torch, cfg, params, seq, P):
+    """Logits (fp32, real vocab) predicting tokens P.. of ``seq`` (B, T)
+    two ways: the serving path (``prefill_cached`` on the prompt, then one
+    ``decode_step`` a token, teacher-forced) and the whole-sequence
+    ``forward``.  Both get the zero image embeddings or frames that
+    ``generate`` serves with.  Returns (decode, forward)."""
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import logits_from_hidden
+    B, T = seq.shape
+    n, V = cfg.n_image_tokens or 0, cfg.vocab
+    stub = stub_inputs(cfg, B, seq.device)
+    with torch.no_grad():
+        h = M.forward(cfg, params, dict(stub, tokens=seq))
+        fwd = logits_from_hidden(params, h[:, n + P - 1:n + T - 1],
+                                 cfg).float()[..., :V]
+        del h
+        cache = M.init_cache(cfg, B, n + T, device=seq.device)
+        h, cache = M.prefill_cached(cfg, params,
+                                    dict(stub, tokens=seq[:, :P]), cache)
+        dec = [logits_from_hidden(params, h[:, -1:], cfg).float()[..., :V]]
+        for t in range(P, T - 1):
+            lg, cache = M.decode_step(cfg, params, cache, seq[:, t:t + 1],
+                                      n + t)
+            dec.append(lg.float()[..., :V])
+    return torch.cat(dec, 1), fwd
+
+
+def phase_families_serving(torch, dev):
+    """hymba-1.5b, whisper-small and paligemma-3b at full width through
+    ``launch/serve --engine batch`` (4 x (32 + 32)), hymba also through
+    ``--engine legacy`` (4 x (16 + 16), the prompts ``run`` draws from
+    seed 1; streams held to ``generate``'s up to a near-tie under
+    ``SPEC_TIE``, and in fp32 under ``FP32_TIE``).  Teacher-forced on the served tokens: the serving
+    path's bf16 logits within ``TF_RATIO`` times the bf16 forward's own
+    distance from the fp32 forward; then in fp32 the serving path within
+    ``FP32_TF`` of the forward's largest logit.  Returns {name: report}."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.serve import generate, parse_args, run
+    S = FAMILY_SERVE
+    out = {}
+    for name in FAMILY_NAMES:
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = family_model(torch, dev, name)
+        tag = f"[{name}]"
+        base = ["--arch", name, "--batch", str(S["B"]), "--prompt-len",
+                str(S["P"]), "--gen", str(S["G"]), "--device", dev.type]
+        report, toks = run(cfg, params, parse_args(["--engine", "batch"]
+                                                   + base))
+        P, G = S["P"], S["G"]
+        if tuple(toks.shape) != (S["B"], P + G):
+            raise AssertionError(f"{tag} --engine batch served "
+                                 f"{tuple(toks.shape)}")
+        streams = toks[:, P:].cpu().tolist()
+        varied(f"{name} --engine batch", streams)
+        log(f"{tag} --engine batch: {report['tokens_per_s']} tokens/s, "
+            f"wall {report['wall_s']} s")
+        rec = {"batch_tokens_per_s": report["tokens_per_s"]}
+        if name == "hymba-1.5b":
+            Lg = FAMILY_LEGACY
+            rep_l, got = run(cfg, params, parse_args(
+                ["--engine", "legacy", "--arch", name, "--batch",
+                 str(Lg["B"]), "--prompt-len", str(Lg["P"]), "--gen",
+                 str(Lg["G"]), "--device", dev.type]))
+            prompts = np.random.default_rng(1).integers(
+                0, cfg.vocab, (Lg["B"], Lg["P"]), dtype=np.int32)
+            seq, top2 = generate(cfg, params,
+                                 torch.from_numpy(prompts).to(dev), Lg["G"],
+                                 return_top2=True)
+            rec["legacy_exact"] = held_to_generate(
+                f"{tag} --engine legacy {Lg['B']} x ({Lg['P']} + "
+                f"{Lg['G']})", [got[i] for i in sorted(got)],
+                seq[:, Lg["P"]:].cpu().tolist(), top2.cpu(), SPEC_TIE)
+            rec["legacy_tokens_per_s"] = rep_l["tokens_per_s"]
+            log(f"{tag} --engine legacy: {rep_l['tokens_per_s']} tokens/s, "
+                f"{rep_l['dispatches']} dispatches")
+        dec16, fwd16 = family_logits(torch, cfg, params, toks, P)
+        cast_fp32(params)
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        if name == "hymba-1.5b":
+            # bf16 logits near 200 round to whole numbers, so bf16 streams
+            # tie often; in fp32 the legacy engine must equal generate
+            _, got = run(c32, params, parse_args(
+                ["--engine", "legacy", "--arch", name, "--batch",
+                 str(Lg["B"]), "--prompt-len", str(Lg["P"]), "--gen",
+                 str(Lg["G"]), "--device", dev.type]))
+            seq, top2 = generate(c32, params,
+                                 torch.from_numpy(prompts).to(dev), Lg["G"],
+                                 return_top2=True)
+            rec["legacy_exact_fp32"] = held_to_generate(
+                f"{tag} fp32 --engine legacy", [got[i] for i in sorted(got)],
+                seq[:, Lg["P"]:].cpu().tolist(), top2.cpu(), FP32_TIE)
+        _, fwd32 = family_logits(torch, c32, params, toks, P)
+        dec_err = (dec16 - fwd32).abs().max().item()
+        own_err = (fwd16 - fwd32).abs().max().item()
+        del dec16, fwd16, fwd32
+        log(f"{tag} teacher-forced on the served tokens: against the fp32 "
+            f"forward, the bf16 serving path {dec_err:.4f}, the bf16 "
+            f"forward {own_err:.4f} (allowed {TF_RATIO:g}x)")
+        if not dec_err <= TF_RATIO * own_err:
+            raise AssertionError(f"{tag} the serving path's logits are "
+                                 f"further from fp32 than bf16 rounding "
+                                 f"explains")
+        seq32 = generate(c32, params, toks[:, :P], G)
+        dec32, fwd32 = family_logits(torch, c32, params, seq32, P)
+        err, scale = ((dec32 - fwd32).abs().max().item(),
+                      fwd32.abs().max().item())
+        del dec32, fwd32
+        log(f"{tag} fp32: the serving path against the forward over "
+            f"{S['B']}x{P + G} tokens: max diff {err:.3e}, largest logit "
+            f"{scale:.3f} (allowed {FP32_TF:g} of it)")
+        if not err <= FP32_TF * scale:
+            raise AssertionError(f"{tag} fp32: the serving path leaves the "
+                                 f"forward")
+        del params
+        sync(torch, dev)
+        rec.update(fp32_err=err, tf_err=dec_err, own_err=own_err,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   seconds=time.perf_counter() - t_phase)
+        log(f"{tag} serving phase {rec['seconds']:.1f} s, peak memory "
+            f"{rec['peak_gib']:.1f} GiB")
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families_train(torch, dev):
+    """Each family at full width (fp32 masters, bf16 compute, remat full;
+    random weights from seed 0, the final norm scaled so the logits have a
+    std of 1) on the flash path where the JAX package takes its kernel
+    (unrolled, no image prefix).  One ``loss_and_grads`` launches what the
+    code implies (2 L forward with lse, L dq, L dk/dv over the L layers
+    that attend by themselves: hymba's 32, whisper's 12 + 12, none for
+    paligemma) and its loss matches plain attention's.  The gradients are
+    held in fp32 compute, the flash path on the fp32 kernels against plain
+    fp32 attention, every leaf within ``FAMILY_GRAD_TOL`` and below a
+    32-token window in every windowed layer (hymba's 29 local ones,
+    whisper's decoder): in bf16 both paths sit about 1 from fp32 on
+    hymba's attention projections (a softmax over a thousand keys leaves
+    dq a difference of near-equal sums), too far to tell a wrong
+    attention.  Then a timed ``make_train_step`` step at
+    ``FAMILY_TRAIN``'s shape with those launches, its device busy under
+    ``torch.profiler`` and the peak memory.  Returns {name: report} with
+    the step's flash launches."""
+    import dataclasses
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (TrainState, loss_and_grads,
+                                         make_train_step)
+    out = {}
+    for name in FAMILY_NAMES:
+        t_phase = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = get_config(name)
+        cfg = dataclasses.replace(base, use_pallas_attention=True,
+                                  scan_layers=False)
+        plain = dataclasses.replace(base, scan_layers=False)
+        tag = f"[{name} train]"
+        B, S = FAMILY_TRAIN[name]
+        n_img = cfg.n_image_tokens or 0
+        Lf = 0 if n_img else cfg.n_layers + cfg.n_encoder_layers
+        want = {"fwd": 0, "fwd_lse": 2 * Lf, "dq": Lf, "dkv": Lf}
+        params = M.init_params(cfg, seed=0, device=dev,
+                               param_dtype=torch.float32)
+        # random tied embeddings give logits of std sqrt(d_model) (40 for
+        # hymba), a saturated softmax; the final norm's scale cut to
+        # 1 / sqrt(d) gives logits of std 1
+        params["final_ln"]["scale"].mul_(cfg.d_model ** -0.5)
+        batch_fn = make_batch_fn(cfg, ShapeConfig(name, S + n_img, B,
+                                                  "train"), seed=0)
+        b0 = {k: v.to(dev) for k, v in batch_fn(0).items()}
+        log(f"{tag} {M.count_params(cfg) / 1e9:.3f} B fp32 masters; batch "
+            f"{B} x {S} text tokens"
+            + (f" after a {n_img}-token image prefix" if n_img else "")
+            + (f" over {cfg.encoder_seq} frames"
+               if cfg.n_encoder_layers else ""))
+        zero_flash_counts()
+        loss_f, _, g_f = loss_and_grads(cfg, params, b0)
+        sync(torch, dev)
+        once = flash_counts()
+        del g_f
+        with torch.no_grad():
+            loss_p = M.loss_fn(plain, params, b0)[0]
+        lf, lp = loss_f.item(), loss_p.item()
+        log(f"{tag} first step loss (bf16): flash {lf:.6f}, plain {lp:.6f};"
+            f" flash launches {once} (the code implies {want})")
+        if not (math.isfinite(lf) and abs(lf - lp) <= LOSS_RTOL * abs(lp)):
+            raise AssertionError(f"{tag} the flash path's loss differs from "
+                                 f"plain attention's")
+        if once != want:
+            raise AssertionError(f"{tag} one loss_and_grads launched {once}, "
+                                 f"the code implies {want}")
+        err = None
+        if Lf:
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            _, _, g_f = loss_and_grads(c32, params, b0)
+            _, _, g_p = loss_and_grads(
+                dataclasses.replace(plain, dtype="float32"), params, b0)
+            err, at = leaf_errs(torch, g_f, g_p)
+            del g_f
+            # a wrong attention: a window of 32 tokens (fewer on a short
+            # text) in every windowed layer
+            win = min(32, S // 4)
+            _, _, g_w = loss_and_grads(
+                dataclasses.replace(c32, sliding_window=win), params, b0)
+            wrong_err, _ = leaf_errs(torch, g_w, g_p)
+            del g_w, g_p
+            judge(f"{name} fp32 grads", err, FAMILY_GRAD_TOL,
+                  {f"a {win}-token window": wrong_err},
+                  extra=f"; worst at {at}; flash on the fp32 kernels "
+                        f"against plain fp32 attention",
+                  what="worst leaf's ||flash - plain|| / ||plain||")
+        else:
+            log(f"{tag} no flash path (an image prefix): the loss is plain "
+                f"attention's")
+        log(f"{tag} checks done {time.perf_counter() - t_phase:.1f} s into "
+            f"the phase")
+        st = TrainState(params, adamw_init(params, AdamWConfig()),
+                        torch.zeros((), dtype=torch.int32, device=dev))
+        del params
+        # the loss_and_grads calls above warmed the step's kernels
+        step = make_train_step(cfg, base_lr=3e-4, warmup=2, total_steps=10)
+        sync(torch, dev)
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        st, m = step(st, batch_fn(1))
+        sync(torch, dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        got = flash_counts()
+        loss = m["loss"].item()
+        if got != want or not math.isfinite(loss):
+            raise AssertionError(f"{tag} a step launched {got}, the code "
+                                 f"implies {want}; loss {loss}")
+        rows = profiled(torch, lambda: step(st, batch_fn(2)), 1)
+        busy = sum(r[0] for r in rows) / 1e3
+        flash = sum(r[0] for r in rows if "flash_" in r[2]) / 1e3
+        blas = sum(r[0] for r in rows
+                   if any(s in r[2] for s in BLAS_KERNELS)) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del st
+        rec = dict(launches=got, step_ms=wall, busy_ms=busy,
+                   flash_ms=flash, blas_ms=blas, launches_on_card=sum(
+                       r[1] for r in rows), peak_gib=peak, loss=loss,
+                   grad_err=err, seconds=time.perf_counter() - t_phase)
+        log(f"{tag} a step: wall {wall:.1f} ms, loss {loss:.4f}, flash "
+            f"launches {got}; device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / wall:.3f}), flash kernels {flash:.1f} ms, cuBLAS "
+            f"{blas:.1f} ms, {rec['launches_on_card']} launches on the card"
+            f"; peak memory {peak:.1f} GiB; phase {rec['seconds']:.1f} s")
+        for us, n, key in rows[:6]:
+            log(f"{tag}   {us / 1e3:.3f} ms x{n}  {key[:90]}")
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_legacy_ga(torch, dev, problem):
+    """The GA's legacy operator mix (``GAConfig(rgenoud_operators=
+    False)``: blend / uniform crossover, Gaussian, reset and boundary
+    mutations) at the paper's scale on phase 8's problem: the best
+    fitness of the initial population and after 50 generations (never
+    rising, ending lower), the best w scored by the plain version, the
+    fitness kernel's launches (``1 + generations x (polish_steps + 2)``),
+    generations/s.  Returns (launches, report)."""
+    from repro_torch.core import catopt
+    from repro_torch.kernels.recovery import kernel, ref
+    cfg = catopt.GAConfig(rgenoud_operators=False)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        pop0 = catopt._init_pop(gen, cfg.pop_size, problem.n_dims, dev)
+        before = float(catopt.basis_risk(problem, pop0).min())
+    sync(torch, dev)
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    res = catopt.optimize_island(problem, cfg, seed=12, pop0=pop0,
+                                 device=dev)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    hist = res["history"].cpu().numpy()
+    plain = float(ref.basis_risk(problem.industry_losses,
+                                 problem.target_recovery, res["w"][None],
+                                 problem.attachment, problem.limit,
+                                 problem.weight_budget)[0])
+    expect = 1 + cfg.generations * (cfg.polish_steps + 2)
+    gens_s = cfg.generations / wall
+    log(f"[legacy GA] E {problem.n_events} m {problem.n_dims}, pop "
+        f"{cfg.pop_size}, {cfg.generations} generations of the legacy mix: "
+        f"{wall:.3f} s = {gens_s:.2f} generations/s; best fitness "
+        f"{before:.4f} (initial population) -> {hist[0]:.4f} (generation "
+        f"1) -> {hist[-1]:.4f} (plain version on the best w: {plain:.4f});"
+        f" kernel launches {launches} (1 + {cfg.generations} x "
+        f"({cfg.polish_steps} + 2) = {expect})")
+    if not ((hist[1:] <= hist[:-1]).all() and hist[-1] < before):
+        raise AssertionError("legacy GA: the best fitness rose, or never "
+                             "fell")
+    if not abs(plain - float(res["fitness"])) <= 1e-4 * plain:
+        raise AssertionError("legacy GA: the best w does not score its "
+                             "fitness")
+    if launches != expect:
+        raise AssertionError("legacy GA: the fitness did not run through "
+                             "the kernel once per call")
+    breakdown = ga_breakdown(torch, dev, problem, cfg)
+    return launches, dict(before=before, after=float(hist[-1]),
+                          gens_per_s=gens_s, **breakdown)
+
+
 def timing_main(src):
     """``--timing-only [--src DIR]``: phases 1, 6, 6b, 9 and 15, the GA
     generation's breakdown and the fp and int8 decode ticks' alone, on the
@@ -3965,17 +4404,20 @@ def main():
     moe_launches, _ = phase_moe_full_width(torch, dev, family_err)
     spec_launches.update(moe_launches)
     spec_launches.update(phase_other_configs(torch, dev)[0])
+    families = phase_families_serving(torch, dev)
     timing = phase_timing(torch, dev)
     family_timing = phase_family_timing(torch, dev)
     flash_err = phase_flash_vs_plain(torch, dev)
     train = phase_train_full_width(torch, dev)
     phase_train_launcher(torch, dev)
+    family_train = phase_families_train(torch, dev)
     flash_time = phase_flash_timing(torch, dev)
     from repro_torch.core.catopt import make_problem
     problem = make_problem(seed=0, n_events=PAPER["E"], n_dims=PAPER["m"],
                            device=dev)
     fit_abs, fit_rel = phase_fitness_vs_plain(torch, dev, problem)
     fit_launches, _ = phase_catopt(torch, dev, problem)
+    legacy_launches, legacy = phase_legacy_ga(torch, dev, problem)
     fit_time = phase_fitness_timing(torch, dev, problem)
     fit = fit_time["paper"]
     del problem
@@ -4001,6 +4443,13 @@ def main():
                                      for label, c in spec_launches.items()
                                      if c[key]}}
 
+    def trained(*keys):
+        """A flash kernel's launches in each family's timed train step
+        (phase 17)."""
+        return {"launches_by_path": {
+            f"{name} train step": sum(r["launches"][k] for k in keys)
+            for name, r in family_train.items()}}
+
     report = {"kernels": [
         entry("paged_attention_update", KERNEL_SOURCE, KERNEL_REPLACES,
               fp_launches, max(max_err, family_err["verify"]),
@@ -4024,20 +4473,24 @@ def main():
                    single_pool=family_timing["copy_page"], **paths("copy"))),
         entry("flash_attention_pallas", FLASH_SOURCE,
               FLASH_REPLACES["fwd"], train["launches"]["fwd"],
-              flash_err["fwd"], flash_time[("(a)", "fwd")]),
+              flash_err["fwd"], dict(flash_time[("(a)", "fwd")],
+                                     **trained("fwd"))),
         entry("flash_attention_fwd_lse", FLASH_SOURCE,
               FLASH_REPLACES["fwd_lse"], train["launches"]["fwd_lse"],
-              flash_err["fwd_lse"], flash_time[("(a)", "fwd_lse")]),
+              flash_err["fwd_lse"], dict(flash_time[("(a)", "fwd_lse")],
+                                         **trained("fwd_lse"))),
         entry("flash_attention_bwd", FLASH_SOURCE, FLASH_REPLACES["bwd"],
               train["launches"]["dq"] + train["launches"]["dkv"],
-              flash_err["bwd"], flash_time[("(a)", "bwd")]), {
+              flash_err["bwd"], dict(flash_time[("(a)", "bwd")],
+                                     **trained("dq", "dkv"))), {
         "name": "fitness_sq", "route": "cuda",
         "source": FIT_SOURCE, "replaces": FIT_REPLACES,
         "launches": fit_launches, "max_abs_err": fit_abs,
         "max_rel_err": fit_rel,
         "ms": fit["ms"], "plain_ms": fit["plain_ms"],
         "bound_ms": fit["bound_ms"], "bound_by": fit["bound_by"],
-        "library_ms": fit["library_ms"], "polish": fit_time["polish"]},
+        "library_ms": fit["library_ms"], "polish": fit_time["polish"],
+        "launches_by_path": {"legacy operator mix": legacy_launches}},
         entry("wkv6", WKV_SOURCE, WKV_REPLACES, wkv_launches, wkv_abs,
               dict(wkv, max_row_err=wkv_row,
                    library="none: no single PyTorch call computes the "

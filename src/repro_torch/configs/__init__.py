@@ -5,4 +5,5 @@ Importing this package registers each architecture with
 """
 from repro_torch.configs import (gemma3_4b, gemma_2b,  # noqa: F401
                                  glm4_9b, granite_3_2b, grok_1_314b,
-                                 olmoe_1b_7b, rwkv6_1_6b)
+                                 hymba_1_5b, olmoe_1b_7b, paligemma_3b,
+                                 rwkv6_1_6b, whisper_small)

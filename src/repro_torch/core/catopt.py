@@ -9,11 +9,13 @@ sponsor's market-share weights.  The sponsor wants weights minimising
 its actual losses warranted.
 
 Solver: an island genetic algorithm in the style of rgenoud with eight
-operators, elitism, and a gradient polish of the best individuals (a
-momentum step batched over the ``polish_k`` elites: one ``(k, m)`` fitness
-call per step, which is what JAX's ``vmap(polish)`` computes).  Fitness
-runs through ``repro_torch.kernels.recovery.ops.basis_risk``: the CUDA
-kernel on the card, its plain version on the CPU.
+operators (or, with ``GAConfig(rgenoud_operators=False)``, the legacy mix
+of blend / uniform crossover and three mutations), elitism, and a
+gradient polish of the best individuals (a momentum step batched over
+the ``polish_k`` elites: one ``(k, m)`` fitness call per step, which is
+what JAX's ``vmap(polish)`` computes).  Fitness runs through
+``repro_torch.kernels.recovery.ops.basis_risk``: the CUDA kernel on the
+card, its plain version on the CPU.
 
 Randomness goes through one seam: :class:`Draws` returns one generation's
 random numbers (:class:`GenDraws`) from an explicit ``torch.Generator`` on
@@ -27,6 +29,7 @@ process (no ``torch.distributed``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -165,22 +168,42 @@ class GAConfig:
 
 @dataclass
 class GenDraws:
-    """One generation's random numbers, all on the island's device."""
+    """One generation's random numbers, all on the island's device.  The
+    tournaments serve both operator mixes; the rest of the fields are
+    those of ``GAConfig.rgenoud_operators``' mix (rgenoud's eight
+    operators) or of the legacy mix, and the other mix's are None."""
     cand_a: torch.Tensor   # (P, tournament) int64: parent-a tournaments
     cand_b: torch.Tensor   # (P, tournament) int64: parent-b tournaments
-    u: torch.Tensor        # (P, m) uniform [0, 1)
-    u2: torch.Tensor       # (P, m) uniform [0, 1)
-    uu: torch.Tensor       # (P, 1) uniform [0, 1)
-    coord: torch.Tensor    # (P,) int64 in [0, m): mutated coordinate
-    split: torch.Tensor    # (P, 1) int64 in [1, m): single-point crossover
-    op: torch.Tensor       # (P,) int64 in [0, 8): operator, by OP_WEIGHTS
+    # rgenoud's operators
+    u: Optional[torch.Tensor] = None      # (P, m) uniform [0, 1)
+    u2: Optional[torch.Tensor] = None     # (P, m) uniform [0, 1)
+    uu: Optional[torch.Tensor] = None     # (P, 1) uniform [0, 1)
+    coord: Optional[torch.Tensor] = None  # (P,) int64 in [0, m): mutated
+    split: Optional[torch.Tensor] = None  # (P, 1) int64 in [1, m): crossover
+    op: Optional[torch.Tensor] = None     # (P,) int64 in [0, 8): operator
+    # the legacy mix (blend / uniform crossover + three mutations)
+    alpha: Optional[torch.Tensor] = None  # (P, 1) uniform: blend weight
+    pick: Optional[torch.Tensor] = None   # (P, m) bool: uniform crossover
+                                          # takes parent a
+    u4: Optional[torch.Tensor] = None     # (P, 1) uniform: blend (u4 < .5)
+                                          # and crossover (u4 < p_crossover)
+    u5: Optional[torch.Tensor] = None     # (P, m) uniform: the mutation
+                                          # mask and its Gaussian step
+    reset: Optional[torch.Tensor] = None  # (P, m) uniform: reset mutation
+    which: Optional[torch.Tensor] = None  # (P, 1) int64 in [0, 3): the
+                                          # mutation (gauss, reset, bound)
 
 
 class Draws:
     """The seam for a GA's randomness: ``draws(g)`` returns generation
     g's :class:`GenDraws` from ``generator``, in call order (g itself is
-    not used: a replay can index by it).  Nothing here waits for the
-    device."""
+    not used: a replay can index by it), with the fields of the operator
+    mix ``cfg`` names.  Nothing here waits for the device.
+
+    The legacy mix's draws keep the JAX package's key sharing
+    (``repro/core/catopt.py:210-231``): one (P, 1) uniform ``u4`` decides
+    both the blend and the crossover, and one (P, m) uniform ``u5`` gives
+    both the mutation mask and the Gaussian step (:func:`gauss_from`)."""
 
     def __init__(self, generator: torch.Generator, pop_size: int, m: int,
                  cfg: GAConfig, device: torch.device):
@@ -199,11 +222,27 @@ class Draws:
         def randint(lo, hi, *shape):
             return torch.randint(lo, hi, shape, generator=gen, device=dev)
 
-        return GenDraws(cand_a=randint(0, P, P, k), cand_b=randint(0, P, P, k),
-                        u=uniform(P, m), u2=uniform(P, m), uu=uniform(P, 1),
-                        coord=randint(0, m, P), split=randint(1, m, P, 1),
+        cand = dict(cand_a=randint(0, P, P, k), cand_b=randint(0, P, P, k))
+        if not self.cfg.rgenoud_operators:
+            return GenDraws(**cand, alpha=uniform(P, 1),
+                            pick=uniform(P, m) < 0.5, u4=uniform(P, 1),
+                            u5=uniform(P, m), reset=uniform(P, m),
+                            which=randint(0, 3, P, 1))
+        return GenDraws(**cand, u=uniform(P, m), u2=uniform(P, m),
+                        uu=uniform(P, 1), coord=randint(0, m, P),
+                        split=randint(1, m, P, 1),
                         op=torch.searchsorted(self.cdf, uniform(P),
                                               right=True))
+
+
+def gauss_from(u: torch.Tensor) -> torch.Tensor:
+    """Standard normal values from uniforms in [0, 1) the way
+    ``jax.random.normal`` makes them from the same bits:
+    ``sqrt(2) erfinv(max(lo, u (1 - lo) + lo))``, ``lo`` the fp32 number
+    just above -1."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).to(u.device)
+    x = torch.maximum(lo, u * (1.0 - lo) + lo)
+    return torch.erfinv(x) * torch.tensor(math.sqrt(2.0), device=u.device)
 
 
 def _init_pop(generator: torch.Generator, pop: int, m: int,
@@ -263,6 +302,28 @@ def _rgenoud_children(draws: GenDraws, pop: torch.Tensor,
     return torch.clamp(children, 0.0, 1.0)
 
 
+def _legacy_children(draws: GenDraws, pop: torch.Tensor,
+                     fitness: torch.Tensor, cfg: GAConfig) -> torch.Tensor:
+    """The legacy operator mix (``GAConfig.rgenoud_operators=False``):
+    blend or uniform crossover of two tournament winners with probability
+    ``p_crossover`` (else parent a), then each coordinate mutated with
+    probability ``p_mutate / 10`` by a Gaussian step of 0.1, a uniform
+    reset or a boundary value, one of the three per child."""
+    pa = pop[_tournament_select(draws.cand_a, fitness)]
+    pb = pop[_tournament_select(draws.cand_b, fitness)]
+    blend = draws.alpha * pa + (1 - draws.alpha) * pb
+    uniform_x = torch.where(draws.pick, pa, pb)
+    children = torch.where(draws.u4 < 0.5, blend, uniform_x)
+    children = torch.where(draws.u4 < cfg.p_crossover, children, pa)
+    mut_mask = draws.u5 < cfg.p_mutate / 10.0
+    gauss = children + 0.1 * gauss_from(draws.u5)
+    bound = torch.round(draws.reset)
+    mutated = torch.where(draws.which == 0, gauss,
+                          torch.where(draws.which == 1, draws.reset, bound))
+    children = torch.where(mut_mask, mutated, children)
+    return torch.clamp(children, 0.0, 1.0)
+
+
 def _polish(arrays, cfg: GAConfig, w: torch.Tensor) -> torch.Tensor:
     """``cfg.polish_steps`` momentum steps on each row of w (k, m) at once:
     ``mom = 0.9 mom + 0.1 g``, ``w = clip(w - lr mom, 0, 1)``.  The rows'
@@ -288,13 +349,12 @@ def _ga_generation(arrays, cfg: GAConfig, carry, draws: GenDraws,
     Returns ((new_pop, new_fit), best fitness) as JAX's ``lax.scan`` body.
     Fitness calls: one for the children, ``polish_steps`` inside the
     polish's gradients and one for the polished rows."""
-    if not cfg.rgenoud_operators:
-        raise NotImplementedError(
-            "rgenoud_operators=False (the legacy operator mix) is not "
-            "ported to PyTorch yet (ROADMAP.md Queue 1 item 10)")
     il, target, att, limit, budget = arrays
     pop, fitness = carry
-    children = _rgenoud_children(draws, pop, fitness, cfg, gen_frac)
+    if cfg.rgenoud_operators:
+        children = _rgenoud_children(draws, pop, fitness, cfg, gen_frac)
+    else:
+        children = _legacy_children(draws, pop, fitness, cfg)
 
     # --- elitism ------------------------------------------------------------
     elite_idx = torch.argsort(fitness, stable=True)[:cfg.elite]

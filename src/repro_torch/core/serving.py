@@ -16,7 +16,12 @@ leaf).  The port's decode step writes its cache in place, so the write
 through that view is the per-slot commit the JAX engine makes with
 ``tree_map_with_path`` after a full-batch step: the other slots' rows are
 never touched.  It runs the plain PyTorch model on the device, no kernel
-of its own.
+of its own.  It serves decoder-only stacks: dense, MoE, hybrid SSM
+(hymba's state is one more cache group, ``ssm``) and RWKV; it refuses
+encoder-decoder and image-prefix configs, as the JAX engine does.  A slot
+taken by a new request starts from a zero recurrent state (SSM or RWKV),
+the state ``generate`` starts from; the JAX engine leaves the previous
+request's state in the slot.
 
 Correctness contract (tested): a request served through the engine yields
 exactly the tokens it would get from the port's isolated greedy
@@ -137,18 +142,32 @@ class ServingEngine:
             req = self.queue.pop(0)
             self.slot_req[slot] = req
             self.slot_pos[slot] = 0
+            self._reset_state(slot)
             last_logits = None
             for tok in req.prompt:
                 last_logits = self._step_one_slot(slot, int(tok))
             # first generated token comes from the prompt's last logits
             req.generated.append(self._greedy(last_logits))
 
-    def _slot_cache(self, slot: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    def _reset_state(self, slot: int) -> None:
+        """Zero the slot's recurrent state (the K/V rows need no reset:
+        a position past the slot's fill level is masked)."""
+        for group in ("ssm", "rwkv"):
+            leaves = self.cache.get(group)
+            if leaves is None:
+                continue
+            for t in (leaves.values() if isinstance(leaves, dict)
+                      else (leaves,)):
+                t[:, slot].zero_()
+
+    def _slot_cache(self, slot: int) -> Dict[str, Any]:
         """The cache restricted to one slot: every leaf's rows
         ``[:, slot:slot + 1]`` (batch is axis 1 of every leaf), views, so
         the decode step's in-place write lands in that slot alone."""
-        return {group: {name: t[:, slot:slot + 1]
-                        for name, t in leaves.items()}
+        return {group: ({name: t[:, slot:slot + 1]
+                         for name, t in leaves.items()}
+                        if isinstance(leaves, dict)
+                        else leaves[:, slot:slot + 1])
                 for group, leaves in self.cache.items()}
 
     @torch.no_grad()

@@ -73,15 +73,27 @@ class SyntheticLM:
 
 def make_batch_fn(cfg, shape, seed: int = 0
                   ) -> Callable[[int], Dict[str, torch.Tensor]]:
-    """Uniform-random (global_batch, seq_len) int32 tokens and labels for
-    a dense config, deterministic in (seed, step)."""
+    """Uniform-random int32 tokens and labels matching an architecture's
+    inputs, deterministic in (seed, step): (global_batch, seq_len) of
+    text, less the image prefix where the config has one, and then
+    standard normal ``image_embeds`` (B, n_image_tokens, d) and ``frames``
+    (B, encoder_seq, d) in the compute dtype where it takes them."""
     B, S = shape.global_batch, shape.seq_len
+    s_text = S - (cfg.n_image_tokens or 0)
+    dt = getattr(torch, cfg.dtype)
 
     def batch_fn(step: int) -> Dict[str, torch.Tensor]:
         gen = _generator(seed, step)
-        return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
-                                        dtype=torch.int32),
-                "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen,
-                                        dtype=torch.int32)}
+        out = {"tokens": torch.randint(0, cfg.vocab, (B, s_text),
+                                       generator=gen, dtype=torch.int32),
+               "labels": torch.randint(0, cfg.vocab, (B, s_text),
+                                       generator=gen, dtype=torch.int32)}
+        if cfg.n_image_tokens:
+            out["image_embeds"] = torch.randn(
+                (B, cfg.n_image_tokens, cfg.d_model), generator=gen).to(dt)
+        if cfg.n_encoder_layers:
+            out["frames"] = torch.randn(
+                (B, cfg.encoder_seq, cfg.d_model), generator=gen).to(dt)
+        return out
 
     return batch_fn

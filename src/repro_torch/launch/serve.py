@@ -16,10 +16,12 @@ the engine's ``metrics()`` fields.
 
 ``--engine`` selects the serving path: ``batch`` (the static batched
 ``generate``, greedy or sampled at ``--temperature``; it serves every
-family the port runs, the RWKV family from its constant-size state),
+family the port runs, the RWKV family from its constant-size state,
+paligemma-3b and whisper-small with zero image and audio inputs),
 ``legacy`` (per-slot continuous batching over a dense cache,
-``repro_torch.core.serving``) or ``paged`` (the paged engine,
-``repro_torch.serving``; the default).  ``--replicas N`` serves through N
+``repro_torch.core.serving``: decoder-only stacks, hymba-1.5b among them)
+or ``paged`` (the paged engine, ``repro_torch.serving``; the default;
+pure-attention decoders only).  ``--replicas N`` serves through N
 paged engines behind a ``ReplicaRouter`` (``--routing affinity`` or
 ``rr``), all on the one device and one weight set.  ``--open-loop`` serves
 a seeded ``repro_torch.serving.loadgen`` workload (``--mix`` x
@@ -61,6 +63,21 @@ class GumbelDraws:
         return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
+def stub_inputs(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The zero ``image_embeds`` / ``frames`` a prompt is served with
+    (the vision and audio front ends are stubs), in the compute dtype;
+    empty for a text-only config."""
+    dt = getattr(torch, cfg.dtype)
+    out: Dict[str, torch.Tensor] = {}
+    if cfg.n_image_tokens:
+        out["image_embeds"] = torch.zeros(
+            (batch, cfg.n_image_tokens, cfg.d_model), dtype=dt, device=device)
+    if cfg.n_encoder_layers:
+        out["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                    dtype=dt, device=device)
+    return out
+
+
 @torch.no_grad()
 def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
              temperature: float = 0.0,
@@ -81,14 +98,24 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
 
     With ``return_top2`` also returns the (B, gen, 2) fp32 values of the
     two largest logits at each step: how close each greedy choice was.
+
+    An image-prefix model (paligemma) gets zero ``image_embeds`` and an
+    encoder-decoder (whisper) zero ``frames``, as in the JAX package, and
+    a token's position counts the prefix.  The cache holds the prefix as
+    well: JAX's ``generate`` sizes it for the text alone, so it raises
+    when ``gen`` is below the prefix and writes the last ``n_image_tokens``
+    decode steps over its last row (ROADMAP.md Queue 3).
     """
     B, S0 = prompts.shape
     if temperature > 0 and draws is None:
         if generator is None:
             generator = torch.Generator(device=prompts.device).manual_seed(0)
         draws = GumbelDraws(generator, prompts.device)
-    cache = M.init_cache(cfg, B, S0 + gen, device=prompts.device)
-    hidden, cache = M.prefill_cached(cfg, params, {"tokens": prompts}, cache)
+    n_prefix = cfg.n_image_tokens or 0
+    cache = M.init_cache(cfg, B, n_prefix + S0 + gen, device=prompts.device)
+    hidden, cache = M.prefill_cached(
+        cfg, params, dict(stub_inputs(cfg, B, prompts.device),
+                          tokens=prompts), cache)
     logits = logits_from_hidden(params, hidden[:, -1:], cfg)
     toks = prompts
     top2: List[torch.Tensor] = []
@@ -105,7 +132,7 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int, *,
         toks = torch.cat([toks, nxt], dim=1)
         if i + 1 < gen:
             logits, cache = M.decode_step(cfg, params, cache, nxt,
-                                          toks.shape[1] - 1)
+                                          n_prefix + toks.shape[1] - 1)
     if return_top2:
         return toks, torch.stack(top2, dim=1)
     return toks

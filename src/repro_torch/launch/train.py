@@ -11,8 +11,11 @@ runs on the GPU (``--device cpu`` runs the plain PyTorch path on the CPU).
 documents for reaching its flash-attention kernel,
 ``use_pallas_attention=True`` and ``scan_layers=False``: here the layers
 then run the port's flash-attention op (CUDA kernels on the card, their
-plain versions on the CPU).  Prints the JAX driver's JSON report and
-returns it, with the final ``TrainState`` under ``"state"``.
+plain versions on the CPU).  paligemma-3b and whisper-small train on the
+chain's text beside random ``image_embeds`` or ``frames``
+(``data.pipeline.make_batch_fn``), as in the JAX launcher.  Prints the
+JAX launcher's JSON report and returns it, with the final ``TrainState``
+under ``"state"``.
 """
 from __future__ import annotations
 
@@ -28,11 +31,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.config import get_config, reduced
+from repro_torch.config import ShapeConfig, get_config, reduced
 from repro_torch.core import tree
 from repro_torch.core.platform import Platform
 from repro_torch.core.resources import DevicePool
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, make_batch_fn
 from repro_torch.device import cuda_devices, resolve_device
 from repro_torch.ft.preemption import PreemptibleTrainer, PreemptionSchedule
 from repro_torch.train.steps import init_train_state, make_train_step
@@ -86,9 +89,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
         step_fn = make_train_step(cfg, base_lr=args.lr,
                                   total_steps=args.steps)
         state = init_train_state(cfg, seed=0, device=ctx.cluster.master)
+        shape = ShapeConfig("cli", args.seq + (cfg.n_image_tokens or 0),
+                            args.batch, "train")
+        extra_fn = make_batch_fn(cfg, shape)
 
         def batch_fn(step):
-            return data.batch(step, args.batch, args.seq + 1)
+            b = data.batch(step, args.batch, args.seq + 1)
+            if cfg.n_image_tokens or cfg.n_encoder_layers:
+                # the image prefix or the audio frames, beside the text
+                extra = extra_fn(step)
+                extra.update(b)
+                return extra
+            return b
 
         ckpt = CheckpointManager(ctx.outdir / "ckpt", keep_last=3)
         trainer = PreemptibleTrainer(step_fn, batch_fn, ckpt,

@@ -119,14 +119,17 @@ def init_attention(cfg, gen: torch.Generator, n_layers: int, device,
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool, window: int, q_offset: int,
                        softcap: float, q_chunk: int = 512,
-                       k_chunk: int = 1024) -> torch.Tensor:
+                       k_chunk: int = 1024, n_prefix: int = 0
+                       ) -> torch.Tensor:
     """Online-softmax attention, never more than (B, H, q_chunk, k_chunk)
     scores at once.
 
     q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D).  Key j is visible to query i iff
-    (not causal or j <= i) and (i - j < window); ``q_offset`` shifts query
-    positions.  As in the JAX package, q is scaled in its own dtype, dots
-    accumulate in fp32 and p is rounded to v's dtype before the PV product.
+    (not causal or j <= i) and (i - j < window), or both lie in the first
+    ``n_prefix`` positions (a bidirectional prefix, paligemma's image
+    tokens); ``q_offset`` shifts query positions.  As in the JAX package,
+    q is scaled in its own dtype, dots accumulate in fp32 and p is rounded
+    to v's dtype before the PV product.
     """
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -161,6 +164,9 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = dpos < window
             if causal:
                 mask &= dpos >= 0
+            if n_prefix > 0:
+                mask |= ((q_pos[:, None] < n_prefix)
+                         & (k_pos_all[None, k0:k0 + kc] < n_prefix))
             s = torch.where(mask[None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -174,20 +180,61 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def apply_cross_attention(p: Params, x: torch.Tensor, cfg, *,
+                          enc_out: Optional[torch.Tensor] = None,
+                          cache: Optional[Params] = None,
+                          ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Encoder-decoder cross attention (whisper), no mask.
+
+    Training and prefill: ``enc_out`` (B, Se, d) given, K and V computed
+    from it (and written IN PLACE into ``cache``, this layer's ``{"k",
+    "v", "cross_filled"}``, when one is given).  Decode: K and V read from
+    the cache.  Returns (output, cache)."""
+    B, Sq, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, Sq, h, hd)
+    if enc_out is not None:
+        Se = enc_out.shape[1]
+        k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, Se, hkv, hd)
+        v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, Se, hkv, hd)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+            cache["cross_filled"].fill_(1)
+    else:
+        if cache is None:
+            raise ValueError("cross attention needs enc_out or a cache")
+        k, v = cache["k"], cache["v"]
+    G = h // hkv
+    kexp = k.repeat_interleave(G, dim=2).to(q.dtype)
+    vexp = v.repeat_interleave(G, dim=2).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * hd ** -0.5).float(),
+                     kexp.float())
+    prob = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", prob.to(vexp.dtype).float(),
+                       vexp.float()).to(q.dtype)
+    out = out.reshape(B, Sq, h * hd)
+    return out @ p["wo"].to(x.dtype), cache
+
+
 def apply_attention(p: Params, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None,
                     cache: Optional[Params] = None,
                     cache_index: Optional[int] = None,
+                    n_prefix: int = 0,
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Self-attention with an optional dense KV cache.
+    """Self-attention with an optional dense KV cache; the first
+    ``n_prefix`` positions see each other both ways (paligemma's image
+    prefix).
 
     cache: {"k": (B, S, Hkv, D), "v": ...}, written IN PLACE at
     ``cache_index`` (the JAX package returns an updated copy).  Returns
     (output, cache).  Without a cache, ``cfg.use_pallas_attention`` on the
-    unrolled stack (``scan_layers=False``, the JAX package's condition for
-    its kernel) selects the flash-attention op, whose backend follows the
-    tensors' device; anything else runs the chunked attention.
+    unrolled stack (``scan_layers=False``) with no prefix, the JAX
+    package's condition for its kernel, selects the flash-attention op,
+    whose backend follows the tensors' device; anything else runs the
+    chunked attention.
     """
     B, Sq, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -215,11 +262,13 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *,
         valid = k_pos[None, :] <= q_pos[:, None]
         if window is not None:
             valid &= (q_pos[:, None] - k_pos[None, :]) < window
+        if n_prefix > 0:
+            valid |= (q_pos[:, None] < n_prefix) & (k_pos[None, :] < n_prefix)
         s = torch.where(valid[None, None], s, NEG_INF)
         prob = torch.softmax(s, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", prob.to(vexp.dtype).float(),
                            vexp.float()).to(q.dtype)
-    elif cfg.use_pallas_attention and not cfg.scan_layers:
+    elif cfg.use_pallas_attention and not cfg.scan_layers and n_prefix == 0:
         win = 0 if window is None or window >= (1 << 30) else window
         out = fa_ops.attention_trainable(q, k, v, causal=causal, window=win,
                                          softcap=softcap)
@@ -227,7 +276,8 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *,
         out = _chunked_attention(
             q, k, v, causal=causal,
             window=(1 << 30) if window is None else window, q_offset=0,
-            softcap=softcap, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+            softcap=softcap, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
+            n_prefix=n_prefix)
     out = out.reshape(B, Sq, h * hd)
     return out @ p["wo"].to(x.dtype), cache
 

@@ -1,13 +1,16 @@
-"""Decoder stacks for the dense, MoE and RWKV-6 families: stacked layer
-params and a Python loop over layers.  The counterpart of
-``repro/models/transformer.py``.
+"""Decoder and encoder stacks: stacked layer params and a Python loop over
+layers.  The counterpart of ``repro/models/transformer.py``.
 
 Layer weights keep the JAX package's stacked ``(L, ...)`` layout; the loop
-takes the ``i``-th slice of each (a view) where JAX scans over them.  A
-dense layer is attn -> mlp, an MoE layer attn -> MoE FFN
-(``models/moe.py``), an RWKV layer time-mix -> channel-mix
-(``models/rwkv6.py``).  Hybrid-SSM and cross-attention layers come in
-later slices.
+takes the ``i``-th slice of each (a view) where JAX scans over them.  One
+layer body covers every family:
+  dense / vlm / audio : attn -> mlp
+  moe                 : attn -> MoE FFN (``models/moe.py``)
+  rwkv                : time-mix -> channel-mix (``models/rwkv6.py``)
+  hybrid (hymba)      : parallel(attn, ssm) (mean-fused) -> mlp
+                        (``models/ssm.py``)
+and a decoder built with ``cross=True`` (whisper) attends to the encoder's
+output between its self attention and its MLP.
 
 ``cfg.remat`` is the JAX package's rematerialisation policy, applied to
 each layer body when a gradient is being recorded: ``"full"`` keeps only
@@ -28,9 +31,10 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6
-from repro_torch.models.layers import (apply_attention, apply_mlp,
-                                       apply_norm, init_attention, init_mlp,
-                                       init_norm)
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (apply_attention, apply_cross_attention,
+                                       apply_mlp, apply_norm, init_attention,
+                                       init_mlp, init_norm)
 
 Params = Dict[str, Any]
 
@@ -38,15 +42,14 @@ FULL_WINDOW = 1 << 30
 
 
 def check_dense(cfg) -> None:
-    """Raise for the families this slice of the port does not run yet: it
-    runs dense and MoE decoders and RWKV-6 stacks."""
-    if ((cfg.family not in ("dense", "moe") and not cfg.rwkv)
-            or cfg.parallel_ssm or cfg.n_encoder_layers
-            or cfg.n_image_tokens or cfg.rope_theta <= 0):
+    """Raise for a config the JAX package does not define a model for: an
+    RWKV-6 stack with an SSM branch, an encoder or an image prefix (its
+    RWKV layers would build and run none of them)."""
+    if cfg.rwkv and (cfg.parallel_ssm or cfg.n_encoder_layers
+                     or cfg.n_image_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and MoE decoders and RWKV-6 "
-            f"only so far (ROADMAP.md Queue 1 item 6: the other "
-            f"families)")
+            f"{cfg.name}: an RWKV-6 stack takes no SSM branch, encoder or "
+            f"image prefix (the JAX package defines no such model)")
 
 
 def layer_windows(cfg) -> np.ndarray:
@@ -64,8 +67,10 @@ def layer_windows(cfg) -> np.ndarray:
 
 
 def init_stack(cfg, gen: torch.Generator, n_layers: int, device,
-               dtype: Optional[torch.dtype] = None) -> Params:
-    """``dtype``: of the matrices, the compute dtype by default."""
+               dtype: Optional[torch.dtype] = None, *,
+               cross: bool = False) -> Params:
+    """``dtype``: of the matrices, the compute dtype by default.
+    ``cross``: a decoder stack with cross attention (whisper)."""
     check_dense(cfg)
     p = {"ln1": init_norm(cfg, (n_layers, cfg.d_model), device),
          "ln2": init_norm(cfg, (n_layers, cfg.d_model), device)}
@@ -75,6 +80,13 @@ def init_stack(cfg, gen: torch.Generator, n_layers: int, device,
             "cm": rwkv6.init_channel_mix(cfg, gen, n_layers, device, dtype)}
         return p
     p["attn"] = init_attention(cfg, gen, n_layers, device, dtype)
+    if cross:
+        p["cross"] = init_attention(cfg, gen, n_layers, device, dtype)
+        p["ln_cross"] = init_norm(cfg, (n_layers, cfg.d_model), device)
+    if cfg.parallel_ssm:
+        p["ssm"] = ssm_lib.init_ssm(cfg, gen, n_layers, device, dtype)
+        p["ln_attn_out"] = init_norm(cfg, (n_layers, cfg.d_model), device)
+        p["ln_ssm_out"] = init_norm(cfg, (n_layers, cfg.d_model), device)
     if cfg.moe is not None:
         p["moe"] = moe_lib.init_moe(cfg, gen, n_layers, device, dtype)
     else:
@@ -137,21 +149,38 @@ def rwkv_layer(lp: Params, x: torch.Tensor, cfg, *,
 
 def layer_body(lp: Params, x: torch.Tensor, cfg, *,
                positions: torch.Tensor, window: int, causal: bool = True,
+               n_prefix: int = 0, enc_out: Optional[torch.Tensor] = None,
                cache: Optional[Params] = None,
                cache_index: Optional[int] = None) -> torch.Tensor:
-    """One layer; ``cache`` is written in place.  Dense: attn -> mlp, with
-    ``cache`` this layer's ``{"k", "v"}``; MoE: the same with the MoE FFN
-    for the MLP (its aux loss is dropped: training an MoE stack waits for
-    ROADMAP.md Queue 1 item 11).  RWKV: ``rwkv_layer``, with ``cache``
-    this layer's state (positions, window and the cache index play no
-    part)."""
+    """One layer; ``cache`` is this layer's slice of the stacked decode
+    cache, by group as in the JAX package (``{"kv": {"k", "v"}, "ssm":
+    (B, I, N), "cross": {"k", "v", "cross_filled"}}``, or ``{"rwkv":
+    ...}``), written in place.  Attention, with the parallel SSM branch
+    mean-fused through ``ln_attn_out`` / ``ln_ssm_out`` where the config
+    has one, then cross attention to ``enc_out`` (or to the cached
+    encoder K and V) where the layer has it, then the MLP or the MoE FFN
+    (whose aux loss is dropped: training an MoE stack waits for
+    ROADMAP.md Queue 1 item 11).  RWKV: ``rwkv_layer`` (positions,
+    window and the cache index play no part)."""
+    cache = cache or {}
     if cfg.rwkv:
-        return rwkv_layer(lp, x, cfg, state=cache)
-    a, _ = apply_attention(lp["attn"], apply_norm(lp["ln1"], x), cfg,
-                           positions=positions, causal=causal,
-                           window=window, cache=cache,
-                           cache_index=cache_index)
+        return rwkv_layer(lp, x, cfg, state=cache.get("rwkv"))
+    xn = apply_norm(lp["ln1"], x)
+    a, _ = apply_attention(lp["attn"], xn, cfg, positions=positions,
+                           causal=causal, window=window,
+                           cache=cache.get("kv"), cache_index=cache_index,
+                           n_prefix=n_prefix)
+    if cfg.parallel_ssm:
+        s, _ = ssm_lib.apply_ssm(lp["ssm"], xn, cfg, state=cache.get("ssm"))
+        a = 0.5 * (apply_norm(lp["ln_attn_out"], a)
+                   + apply_norm(lp["ln_ssm_out"], s))
     x = x + a
+    if "cross" in lp:
+        c, _ = apply_cross_attention(lp["cross"],
+                                     apply_norm(lp["ln_cross"], x), cfg,
+                                     enc_out=enc_out,
+                                     cache=cache.get("cross"))
+        x = x + c
     return x + ffn(lp, apply_norm(lp["ln2"], x), cfg)
 
 
@@ -163,21 +192,29 @@ def ffn(lp: Params, xn: torch.Tensor, cfg) -> torch.Tensor:
     return apply_mlp(lp["mlp"], xn, cfg.act)
 
 
+def layer_cache(caches: Params, i: int) -> Params:
+    """Layer ``i``'s views of a stacked (L, ...) decode cache, by group."""
+    return {group: ({k: t[i] for k, t in leaves.items()}
+                    if isinstance(leaves, dict) else leaves[i])
+            for group, leaves in caches.items()}
+
+
 def apply_stack(p: Params, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, windows: np.ndarray,
-                causal: bool = True, caches: Optional[Params] = None,
+                causal: bool = True, n_prefix: int = 0,
+                enc_out: Optional[torch.Tensor] = None,
+                caches: Optional[Params] = None,
                 cache_index: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Run every layer in order.  ``caches`` is the stacked (L, ...) dense
-    cache (``{"kv": ...}``) or RWKV state (``{"rwkv": ...}``), updated in
-    place.  Without caches, while a gradient is being recorded, each layer
-    runs under ``cfg.remat``.  Returns (x, caches)."""
+    """Run every layer in order.  ``caches`` is the stacked (L, ...) decode
+    cache by group (``{"kv", "ssm", "cross"}`` or ``{"rwkv"}``), updated
+    in place.  Without caches, while a gradient is being recorded, each
+    layer runs under ``cfg.remat``.  Returns (x, caches)."""
     for i, lp in enumerate(unstack(p, len(windows))):
-        kw = dict(positions=positions, window=int(windows[i]), causal=causal)
+        kw = dict(positions=positions, window=int(windows[i]), causal=causal,
+                  n_prefix=n_prefix, enc_out=enc_out)
         if caches is not None:
-            stacked = caches["rwkv"] if cfg.rwkv else caches["kv"]
-            cache_l = {k: v[i] for k, v in stacked.items()}
-            x = layer_body(lp, x, cfg, cache=cache_l,
+            x = layer_body(lp, x, cfg, cache=layer_cache(caches, i),
                            cache_index=cache_index, **kw)
         elif torch.is_grad_enabled():
             x = remat(functools.partial(layer_body, lp, cfg=cfg, **kw),

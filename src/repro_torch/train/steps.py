@@ -11,7 +11,8 @@ hands the same state to every attempt).  Parameters are fp32 masters
 are fp32, clipped by their global norm, then AdamW under the cosine
 schedule.  ``cfg.microbatches`` accumulates fp32 gradients over equal
 slices of the batch.  The step runs on the device its state lives on; the
-batch (int32 tokens and labels) is moved there.
+batch (int32 tokens and labels, and the image embeddings or audio frames
+of paligemma-3b or whisper-small) is moved there.
 """
 from __future__ import annotations
 

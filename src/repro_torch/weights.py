@@ -6,9 +6,10 @@ layer weights stay stacked on a leading ``L`` axis (the port slices layer
 ``i`` where JAX scans).  Matrices land in the compute dtype for serving, or
 in ``param_dtype`` (fp32 masters for training); norm scales and biases in
 fp32 (see ``models/layers.py``), and so are RWKV-6's token-shift
-coefficients ``mu``, decay ``w0``, ``w1``, ``w2`` and bonus ``u``, and the
-MoE router, which the JAX package keeps fp32 whatever its ``param_dtype``
-(``models/rwkv6.py``, ``models/moe.py``).
+coefficients ``mu``, decay ``w0``, ``w1``, ``w2`` and bonus ``u``, the MoE
+router and the SSM's ``w_dt``, ``dt_bias``, ``w_b``, ``w_c``, ``a_log`` and
+``d_skip``, which the JAX package keeps fp32 whatever its ``param_dtype``
+(``models/rwkv6.py``, ``models/moe.py``, ``models/ssm.py``).
 
 Only the tests build a tree with JAX (``jax.tree.map(np.asarray,
 repro.models.model.init_params(cfg, key))``) and hand it over; the port
@@ -26,7 +27,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import compute_dtype
 from repro_torch.models.transformer import check_dense
 
-_FP32_LEAVES = ("scale", "bias", "mu", "w0", "w1", "w2", "u", "router")
+_FP32_LEAVES = ("scale", "bias", "mu", "w0", "w1", "w2", "u", "router",
+                "w_dt", "dt_bias", "w_b", "w_c", "a_log", "d_skip")
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device: DeviceLike = None,

@@ -4,7 +4,9 @@ The GA's random numbers cross over through the port's one seam
 (``GenDraws``): ``jax_draws`` makes, from a JAX key, exactly the draws
 ``repro.core.catopt._ga_generation`` makes from it (tournament candidates,
 u, u2, uu, the coordinate, and from ``k_op`` both the crossover split and
-the operator choice).  Under those draws the port's operators, one whole
+the operator choice; for the legacy mix the blend weight, the crossover
+pick, the shared keys[4] and keys[5] uniforms, the reset values and the
+mutation choice).  Under those draws the port's operators, one whole
 generation (elitism, batched polish, replacement) and a 3-generation
 ``optimize_island`` meet the JAX package on the CPU within 1e-5 (one
 generation) and 1e-4 (three), fp32.  The problems are small enough that
@@ -41,14 +43,28 @@ def _t(a, dtype=None):
 
 def jax_draws(key, P, m, cfg):
     """The draws JAX's ``_ga_generation`` makes from ``key``
-    (catopt.py:140-175, 204-208), as the port's GenDraws."""
+    (catopt.py:140-175, 204-231), as the port's GenDraws: the mix
+    ``cfg.rgenoud_operators`` names.  The legacy mix's keys[4] and keys[5]
+    each feed two draws of one shape, so one uniform each stands for both
+    (``jax.random.bernoulli(k, p)`` is ``uniform(k) < p`` and
+    ``jax.random.normal(k)`` is ``gauss_from(uniform(k))``, checked
+    below)."""
     ks = jax.random.split(key, 8)
     k_sel_a, k_sel_b, k_op, k_u1, k_u2, k_u3, k_coord = ks[:7]
     ri = lambda k, shape, lo, hi: _t(  # noqa: E731
         jax.random.randint(k, shape, lo, hi), np.int64)
+    cand = dict(cand_a=ri(k_sel_a, (P, cfg.tournament), 0, P),
+                cand_b=ri(k_sel_b, (P, cfg.tournament), 0, P))
+    if not cfg.rgenoud_operators:
+        return tc.GenDraws(
+            **cand, alpha=_t(jax.random.uniform(ks[2], (P, 1))),
+            pick=_t(jax.random.bernoulli(ks[3], 0.5, (P, m))),
+            u4=_t(jax.random.uniform(ks[4], (P, 1))),
+            u5=_t(jax.random.uniform(ks[5], (P, m))),
+            reset=_t(jax.random.uniform(ks[6], (P, m))),
+            which=ri(ks[7], (P, 1), 0, 3))
     return tc.GenDraws(
-        cand_a=ri(k_sel_a, (P, cfg.tournament), 0, P),
-        cand_b=ri(k_sel_b, (P, cfg.tournament), 0, P),
+        **cand,
         u=_t(jax.random.uniform(k_u1, (P, m))),
         u2=_t(jax.random.uniform(k_u2, (P, m))),
         uu=_t(jax.random.uniform(k_u3, (P, 1))),
@@ -225,11 +241,90 @@ def test_rgenoud_ga_converges():
 
 
 def test_legacy_operator_mix_not_ported():
-    prob = tc.make_problem(0, n_events=16, n_dims=4, device=CPU)
-    cfg = tc.GAConfig(pop_size=8, generations=1, elite=2, polish_k=1,
-                      rgenoud_operators=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tc.optimize_island(prob, cfg, device=CPU)
+    """The legacy operator mix (``rgenoud_operators=False``, once refused
+    here) runs: children in the box, the best never rises, the run's
+    fitness calls as the default mix's, and its draws carry the legacy
+    fields only."""
+    prob = tc.make_problem(0, n_events=128, n_dims=16, device=CPU)
+    cfg = tc.GAConfig(pop_size=16, generations=6, elite=2, polish_k=1,
+                      polish_steps=2, rgenoud_operators=False)
+    d = tc.Draws(torch.Generator().manual_seed(1), 16, 16, cfg, CPU)(0)
+    assert d.u is None and d.op is None and d.pick.dtype == torch.bool
+    assert d.which.min() >= 0 and d.which.max() < 3
+    res = tc.optimize_island(prob, cfg, seed=2, device=CPU)
+    h = res["history"].numpy()
+    assert h.shape == (6,) and (np.diff(h) <= 0).all()
+    assert float(res["fitness"]) == h[-1]
+    pop = res["pop"]
+    assert (pop >= 0).all() and (pop <= 1).all()
+
+
+def test_legacy_draws_replay_jax_key_sharing():
+    """JAX's legacy mix draws two Bernoullis from keys[4] and a Bernoulli
+    mask and a normal from keys[5]: ``bernoulli(k, p)`` equals
+    ``uniform(k) < p`` exactly, and ``gauss_from(uniform(k))`` equals
+    ``normal(k)`` within 1e-5 relative (torch's and XLA's erfinv differ
+    by a few ulps in the tails)."""
+    k = jax.random.PRNGKey(5)
+    u = np.asarray(jax.random.uniform(k, (64, 32)))
+    for p in (0.5, 0.6, 0.025):
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.bernoulli(k, p, (64, 32))), u < p)
+    np.testing.assert_allclose(tc.gauss_from(_t(u)).numpy(),
+                               np.asarray(jax.random.normal(k, (64, 32))),
+                               rtol=1e-5, atol=1e-6)
+    # the edge: a zero uniform maps to JAX's lowest normal, not -inf
+    lo = tc.gauss_from(torch.zeros(1))
+    assert torch.isfinite(lo).all() and float(lo) < -5
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_legacy_generation_matches_jax(seed):
+    """One legacy-mix generation (crossover, the three mutations,
+    fitness, elitism, polish, replacement) under JAX's draws, within
+    1e-5; the draws reach every mutation and both crossovers."""
+    jp, tp = problems(seed)
+    kw = dict(SMALL, rgenoud_operators=False)
+    cfg_j, cfg_t = jc.GAConfig(**kw), tc.GAConfig(**kw)
+    P, m = cfg_j.pop_size, jp.n_dims
+    pop = jax.random.uniform(jax.random.PRNGKey(40 + seed), (P, m))
+    fit = jc.basis_risk(jp, pop)
+    assert min_gap(fit) > 1e-4
+    key = jax.random.PRNGKey(50 + seed)
+    d = jax_draws(key, P, m, cfg_t)
+    mask = d.u5 < cfg_t.p_mutate / 10
+    assert set(d.which[:, 0][mask.any(1)].tolist()) == {0, 1, 2}
+    assert (d.u4 < 0.5).any() and ((d.u4 >= 0.5) & (d.u4 < 0.6)).any()
+    (want_pop, want_fit), want_best = jc._ga_generation(
+        jax_arrays(jp), cfg_j, (pop, fit), key, gen_frac=0.4)
+    (got_pop, got_fit), got_best = tc._ga_generation(
+        tp.arrays(), cfg_t, (_t(pop), _t(fit)), d, gen_frac=0.4)
+    np.testing.assert_allclose(got_pop.numpy(), np.asarray(want_pop),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_fit.numpy(), np.asarray(want_fit),
+                               atol=1e-5, rtol=1e-5)
+    assert abs(float(got_best) - float(want_best)) <= 1e-5 * float(want_best)
+
+
+def test_legacy_optimize_island_matches_jax_three_generations():
+    """The legacy mix over 3 generations under JAX's initial population
+    and draws: the history and the best w within 1e-4."""
+    jp, tp = problems(5)
+    kw = dict(SMALL, generations=3, rgenoud_operators=False)
+    cfg_j, cfg_t = jc.GAConfig(**kw), tc.GAConfig(**kw)
+    key = jax.random.PRNGKey(6)
+    want = jc.optimize_island(jp, cfg_j, key)
+    gkeys = jax.random.split(key, cfg_j.generations)
+    P, m = cfg_j.pop_size, jp.n_dims
+    got = tc.optimize_island(
+        tp, cfg_t, pop0=_t(jc._init_pop(key, P, m)),
+        draws=lambda g: jax_draws(gkeys[g], P, m, cfg_t), device=CPU)
+    np.testing.assert_allclose(got["history"].numpy(),
+                               np.asarray(want["history"]), rtol=1e-4)
+    np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got["pop_fitness"].numpy(),
+                               np.asarray(want["pop_fitness"]), rtol=1e-4)
 
 
 # --- islands -----------------------------------------------------------------

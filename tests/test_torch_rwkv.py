@@ -39,6 +39,7 @@ from repro_torch.weights import params_from_numpy
 
 ARCH = "rwkv6-1.6b"
 FP32_LEAVES = ("scale", "bias", "mu", "w0", "w1", "w2", "u")
+SSM_FP32 = ("w_dt", "dt_bias", "w_b", "w_c", "a_log", "d_skip")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -303,22 +304,56 @@ def test_serve_cli_batch_engine(model, capsys):
     capsys.readouterr()
 
 
+def _flat(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 @pytest.mark.parametrize("change", [
     dict(family="moe", moe=MoEConfig(num_experts=4, top_k=2, d_ff=64)),
     dict(family="hybrid", parallel_ssm=True), dict(n_encoder_layers=2),
     dict(family="vlm", n_image_tokens=4), dict(rope_theta=0.0)],
     ids=["moe", "hybrid_ssm", "encdec", "image_prefix", "learned_pos"])
 def test_other_families_still_raise(change):
-    """The stack admits RWKV and MoE and nothing else new.  The ``moe``
-    case checks what it admits: ``init_params`` builds ``layers/moe`` and
-    no ``layers/mlp``, and ``params_from_numpy`` carries JAX's reduced
-    tree unchanged (the router fp32)."""
+    """Every family change is admitted now (the MoE, hybrid-SSM,
+    encoder-decoder, image-prefix and learned-position families are
+    ported): ``init_params`` builds the family's leaves,
+    and ``params_from_numpy`` carries JAX's reduced tree unchanged, the
+    MoE router and the SSM's fp32 leaves fp32 under a bf16 compute
+    dtype."""
     cfg = reduced(get_config("granite-3-2b"), **change)
     if cfg.moe is None:
-        with pytest.raises(NotImplementedError):
-            M.init_params(cfg, 0, "cpu")
-        with pytest.raises(NotImplementedError):
-            params_from_numpy({}, cfg, device="cpu")
+        family = (("layers", "ssm") if cfg.parallel_ssm else
+                  ("encoder",) if cfg.n_encoder_layers else
+                  ("image_proj",) if cfg.n_image_tokens else ("pos_embed",))
+        own = M.init_params(cfg, 0, "cpu")
+        tree = jax.tree.map(np.asarray, JM.init_params(
+            jax_reduced(jax_get_config("granite-3-2b"), **change),
+            jax.random.PRNGKey(0)))
+        got = params_from_numpy(tree, cfg, device="cpu")
+        got16 = params_from_numpy(
+            tree, dataclasses.replace(cfg, dtype="bfloat16"), device="cpu")
+        flat = {"/".join(k): v for k, v in _flat(tree)}
+        assert {"/".join(k) for k, _ in _flat(own)} == set(flat)
+        assert any(tuple(k.split("/")[:len(family)]) == family
+                   for k in flat), family
+        for (path, t), (_, t16) in zip(_flat(got), _flat(got16)):
+            name = "/".join(path)
+            assert tuple(t.shape) == flat[name].shape, name
+            np.testing.assert_array_equal(t.numpy(), flat[name],
+                                          err_msg=name)
+            fp32 = path[-1] in FP32_LEAVES + SSM_FP32
+            assert t16.dtype == (torch.float32 if fp32 else torch.bfloat16)
+        if cfg.parallel_ssm:
+            assert set(own["layers"]["ssm"]) == set(SSM_FP32) | {
+                "w_in", "w_gate", "w_out"}
+        if cfg.n_encoder_layers:
+            assert set(own["layers"]) >= {"cross", "ln_cross"}
         return
     own = M.init_params(cfg, 0, "cpu")["layers"]
     assert "mlp" not in own and set(own["moe"]) == {"router", "wg", "wu",
